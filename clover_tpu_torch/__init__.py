@@ -1,0 +1,36 @@
+"""clover_tpu_torch: block-scaled quantized linear algebra on PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper.
+
+A port of ``clover_tpu`` (JAX/Pallas), which stays the reference: the
+containers are byte-compatible with it, deterministic quantize, transpose
+and threshold agree with it bit for bit, and MVM/AXPY within one output
+LSB.  CUDA tensors run the kernels in ``csrc/`` (built with nvcc on first
+use); CPU tensors run each kernel's plain torch version.  Importing this
+package imports neither jax nor clover_tpu, and builds nothing.
+"""
+
+from .formats import (
+    BLOCK, PAD, QMat4, QMat8, QMat16, QMat32, QVec4, QVec8, QVec16, QVec32,
+    pack_nibbles, pad_to, to_device, unpack_nibbles, zeros_vector,
+)
+from .models import SolveResult, gd, iht, make_iht_problem
+from .ops.axpy import scale_and_add
+from .ops.mvm import mvm, mvm_axpy, mvm_f32
+from .ops.quantize import (
+    quantize, quantize_mat, quantize_vec, restore, restore_mat, restore_vec,
+)
+from .ops.threshold import threshold
+from .ops.transpose import transpose
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "BLOCK", "PAD",
+    "QVec4", "QVec8", "QVec16", "QVec32",
+    "QMat4", "QMat8", "QMat16", "QMat32",
+    "pack_nibbles", "unpack_nibbles", "pad_to", "zeros_vector", "to_device",
+    "quantize", "quantize_vec", "quantize_mat",
+    "restore", "restore_vec", "restore_mat",
+    "scale_and_add", "mvm", "mvm_axpy", "mvm_f32", "threshold", "transpose",
+    "iht", "gd", "SolveResult", "make_iht_problem",
+]

@@ -1,0 +1,43 @@
+// Helpers shared by the kernels.  Every source is built with -fmad=false and
+// IEEE division (no --use_fast_math), so each product, sum and quotient
+// below rounds once, exactly as the plain torch versions do.
+#pragma once
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "philox.cuh"
+
+namespace clover {
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, o));
+  return v;
+}
+
+// Stochastic rounding of one value, in the op order of
+// clover_tpu/ops/_core.py sr_codes: mult = qm / s (by the caller), then
+// floor(|x| * mult + u), clamped to qm, sign reapplied.  The clamp binds:
+// |x| * mult can round to just above qm and u can reach 1 - 2^-24.
+__device__ __forceinline__ int sr_code(float x, float mult, float qm, float u) {
+  const float mag = fabsf(x) * mult + u;
+  const int q = (int)fminf(floorf(mag), qm);
+  return x < 0.0f ? -q : q;
+}
+
+// Zero block scale -> 1.0 (clover_tpu/ops/_core.py block_scales).
+__device__ __forceinline__ float nonzero_scale(float s) {
+  return s == 0.0f ? 1.0f : s;
+}
+
+// Packed 4-bit byte: low nibble lo + 8, high nibble hi (formats.py).
+__device__ __forceinline__ int8_t pack_byte(int lo, int hi) {
+  return (int8_t)(16 * hi + lo + 8);
+}
+
+__device__ __forceinline__ int low_code(int byte) { return (byte & 15) - 8; }
+__device__ __forceinline__ int high_code(int byte) { return byte >> 4; }
+
+}  // namespace clover

@@ -1,0 +1,47 @@
+"""Hand-written Hopper kernels (CUDA C++ in ``csrc/``) with their plain
+torch versions.
+
+Each ``*_cuda`` wrapper checks its operands, allocates the outputs, launches
+on the current stream and adds one to its ``launches`` count.  Each
+``*_plain`` function computes the same with torch ops on any device; the ops
+take it for CPU tensors only.  Nothing here builds or loads CUDA code at
+import time.
+"""
+
+from .dispatch import SEED_GOLD, SEED_OP, on_cuda, seed_from, wrap_i32
+from .mvm import axpy_plain, mvm4_cuda, mvm4_plain
+from .quantize import (
+    quantize_mat_cuda, quantize_mat_plain, quantize_vec_cuda,
+    quantize_vec_plain,
+)
+from .threshold import threshold4_cuda, threshold4_plain
+from .transpose import transpose4_cuda, transpose4_plain
+
+# kernel name -> launch wrapper
+KERNELS = {
+    "quantize_mat": quantize_mat_cuda,
+    "quantize_vec": quantize_vec_cuda,
+    "transpose4": transpose4_cuda,
+    "mvm4": mvm4_cuda,
+    "threshold4": threshold4_cuda,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = [
+    "SEED_GOLD", "SEED_OP", "on_cuda", "seed_from", "wrap_i32",
+    "KERNELS", "launch_counts", "reset_launch_counts",
+    "quantize_vec_cuda", "quantize_vec_plain",
+    "quantize_mat_cuda", "quantize_mat_plain",
+    "transpose4_cuda", "transpose4_plain",
+    "mvm4_cuda", "mvm4_plain", "axpy_plain",
+    "threshold4_cuda", "threshold4_plain",
+]

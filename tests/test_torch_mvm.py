@@ -1,0 +1,162 @@
+"""clover_tpu_torch MVM, fused MVM+AXPY and scaleAndAdd (the MVM kernel's
+plain version) against clover_tpu.
+
+Integer block dots are exact in both packages; the f32 sum over blocks
+runs in another order (the port mirrors its CUDA kernel's lane order), so
+codes may differ by 1 LSB and scales by rtol 1e-5 -- the allowance the
+TPU kernels get against XLA in tests/test_kernels.py.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import clover_tpu as ct
+import clover_tpu_torch as tt
+from clover_tpu.kernels.mvm import mvm_axpy_pallas, mvm_pallas
+from clover_tpu_torch.kernels import mvm4_plain
+from clover_tpu_torch.kernels.mvm import blocked_products, blocked_sum
+from torch_helpers import assert_same, assert_within_lsb, to_jax, to_torch
+
+SIZES = [(128, 128), (200, 300), (256, 384), (512, 1024), (192, 2048)]
+
+
+def _problem(rng, m, n, bits_a=4, bits_x=4, bits_u=4):
+    A = rng.random((m, n), dtype=np.float32) * 2 - 1
+    x = rng.random(n, dtype=np.float32) * 2 - 1
+    u = rng.random(m, dtype=np.float32) * 2 - 1
+    return (ct.quantize(jnp.asarray(A), bits_a),
+            ct.quantize(jnp.asarray(x), bits_x),
+            ct.quantize(jnp.asarray(u), bits_u))
+
+
+@pytest.mark.parametrize("m,n", SIZES)
+def test_mvm4_matches_jax(rng, m, n):
+    jA, jx, _ = _problem(rng, m, n)
+    got = tt.mvm(to_torch(jA), to_torch(jx))
+    assert isinstance(got, tt.QVec4) and got.length == m
+    assert_within_lsb(got, ct.mvm(jA, jx))
+    assert_within_lsb(got, mvm_pallas(jA, jx))
+
+
+@pytest.mark.parametrize("m,n", SIZES)
+@pytest.mark.parametrize("alpha", [-1.0, 0.00513])
+def test_mvm_axpy4_matches_jax(rng, m, n, alpha):
+    """Each stage within the MVM tolerance.  The intermediate t1 may differ
+    by 1 LSB; where it does at a band's absmax, the AXPY's new band scale
+    moves by |alpha| s1/7, so the fused outputs are compared where the
+    intermediates agree, and the AXPY stage always on the same t1."""
+    jA, jx, ju = _problem(rng, m, n)
+    A, x, u = to_torch(jA), to_torch(jx), to_torch(ju)
+    t1 = tt.mvm(A, x)
+    jt1 = ct.mvm(jA, jx)
+    assert_within_lsb(t1, jt1)
+    got = tt.mvm_axpy(A, x, u, alpha)
+    assert_within_lsb(got, ct.scale_and_add(ju, to_jax(t1), alpha))
+    same_t1 = np.array_equal(t1.codes.numpy(), np.asarray(jt1.codes))
+    if same_t1:
+        assert_within_lsb(got, ct.mvm_axpy(jA, jx, ju, alpha))
+    if np.array_equal(t1.codes.numpy(), np.asarray(mvm_pallas(jA, jx).codes)):
+        assert_within_lsb(got, mvm_axpy_pallas(jA, jx, ju, alpha))
+    # at these sizes and seeds most cases agree: the comparison is not vacuous
+    if (m, n) in ((128, 128), (256, 384)):
+        assert same_t1
+
+
+@pytest.mark.parametrize("gens", [(None, None), (3, None), (None, 4), (5, 6)])
+def test_mvm_axpy_fused_equals_unfused(rng, gens):
+    """The fused form is mvm then scaleAndAdd bit for bit, SR included:
+    the MVM requant draws Philox leg 0, the AXPY requant leg 1."""
+    A, x, u = (to_torch(q) for q in _problem(rng, 256, 512))
+    got = tt.mvm_axpy(A, x, u, 0.25, *gens)
+    want = tt.scale_and_add(u, tt.mvm(A, x, gens[0]), 0.25, gens[1])
+    assert_same(got, want)
+
+
+def test_blocked_sum_is_the_kernel_lane_order(rng):
+    """blocked_sum reproduces, op for op, a scalar emulation of the CUDA
+    kernel's warp: lane pair p accumulates blocks p, p+16, ... from 0, then
+    the pair sums reduce by xor-shuffles 16, 8, 4, 2 (pairs p^8, p^4, p^2,
+    p^1)."""
+    for nb in (2, 6, 16, 40, 256):
+        t = torch.from_numpy(rng.standard_normal((3, nb)).astype(np.float32))
+        f = np.float32
+        for row in range(3):
+            acc = [f(0.0)] * 16
+            for c in range(-(-nb // 16)):
+                for p in range(16):
+                    b = 16 * c + p
+                    acc[p] = f(acc[p] + (t[row, b].item() if b < nb else f(0)))
+            for off in (8, 4, 2, 1):
+                acc = [f(acc[p] + acc[p ^ off]) for p in range(16)]
+            assert blocked_sum(t)[row].numpy().view(np.uint32) == \
+                np.float32(acc[0]).view(np.uint32)
+
+
+def test_mvm_f32_matches_golden(rng):
+    jA, jx, _ = _problem(rng, 256, 384)
+    A, x = to_torch(jA), to_torch(jx)
+    from clover_tpu import golden
+    want = golden.mvm_f32_exact(
+        np.asarray(ct.formats.unpack_nibbles(jA.codes)), np.asarray(jA.scales),
+        np.asarray(ct.formats.unpack_nibbles(jx.codes)), np.asarray(jx.scales),
+        4)
+    np.testing.assert_allclose(tt.mvm_f32(A, x).numpy(), want, rtol=2e-5,
+                               atol=1e-5)
+    dots = blocked_products(A.codes, A.scales, x.codes, x.scales)
+    assert dots.shape == (256, 6)
+    np.testing.assert_allclose(blocked_sum(dots).numpy(), want, rtol=2e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("bits_a,bits_x", [(4, 8), (8, 8)])
+def test_mvm_mixed_and_8bit_match_jax(rng, bits_a, bits_x):
+    jA, jx, ju = _problem(rng, 256, 512, bits_a, bits_x, 8)
+    A, x = to_torch(jA), to_torch(jx)
+    assert_within_lsb(tt.mvm(A, x), ct.mvm(jA, jx))
+    assert_within_lsb(tt.mvm_axpy(A, x, to_torch(ju), -0.5),
+                      ct.mvm_axpy(jA, jx, ju, -0.5))
+
+
+@pytest.mark.parametrize("bits", [16, 32])
+def test_mvm_fp_matches_jax(rng, bits):
+    jA, jx, _ = _problem(rng, 128, 256, bits, bits, bits)
+    got = tt.mvm(to_torch(jA), to_torch(jx))
+    want = ct.mvm(jA, jx)
+    assert type(got).__name__ == type(want).__name__
+    np.testing.assert_allclose(got.values.numpy().astype(np.float32),
+                               np.asarray(want.values, np.float32),
+                               rtol=2e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("alpha", [-1.0, 0.37])
+def test_scale_and_add_matches_jax(rng, bits, alpha):
+    u = ct.quantize(jnp.asarray(rng.random(1000, dtype=np.float32) - 0.5), bits)
+    v = ct.quantize(jnp.asarray(rng.random(1000, dtype=np.float32) - 0.5), bits)
+    assert_within_lsb(tt.scale_and_add(to_torch(u), to_torch(v), alpha),
+                      ct.scale_and_add(u, v, alpha))
+
+
+def test_mvm_sr_unbiased(rng):
+    """SR requant: the mean over 8 generators is within 1 LSB of the exact
+    f32 product, and a fixed seed reproduces."""
+    A, x, _ = (to_torch(q) for q in _problem(rng, 256, 512))
+    y_ref = tt.mvm_f32(A, x).numpy()
+    outs = [tt.restore(tt.mvm(A, x, torch.Generator().manual_seed(s)))
+            .values.numpy() for s in range(8)]
+    lsb = np.repeat(tt.mvm(A, x).scales.numpy(), 64) / 7.0
+    assert np.all(np.abs(np.mean(outs, axis=0) - y_ref) <= lsb)
+    assert any(not np.array_equal(outs[0], o) for o in outs[1:])
+    assert_same(tt.mvm(A, x, 11), tt.mvm(A, x, 11))
+
+
+def test_mvm4_plain_raw_interface(rng):
+    A, x, u = (to_torch(q) for q in _problem(rng, 128, 256))
+    codes, scales = mvm4_plain(A.codes, A.scales, x.codes, x.scales)
+    assert codes.shape == (64,) and scales.shape == (2,)
+    assert_same(tt.QVec4(codes=codes, scales=scales, length=128),
+                tt.mvm(A, x))
+    with pytest.raises(TypeError):
+        tt.scale_and_add(u, tt.quantize(torch.zeros(128), 8), 1.0)

@@ -1,0 +1,165 @@
+"""clover_tpu_torch quantize/restore (the quantize kernel's plain version)
+against clover_tpu and its golden oracle.
+
+Deterministic mode is bit-identical to clover_tpu's XLA path, its Pallas
+kernels in interpret mode, and golden.py.  Stochastic rounding draws the
+port's own Philox stream, so SR is held to statistics: unbiased within 1
+LSB on average over generators, exactly reproducible per generator.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import clover_tpu as ct
+import clover_tpu_torch as tt
+from clover_tpu import golden
+from clover_tpu.kernels.quantize import quantize_mat_pallas, quantize_vec_pallas
+from clover_tpu_torch.kernels import philox
+from clover_tpu_torch.ops import _core
+from torch_helpers import assert_same, element_codes, to_torch
+
+# Random123 philox4x32-10 known answers: (counter, key) -> output
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF, 0xFFFFFFFF),
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)),
+]
+
+
+@pytest.mark.parametrize("ctr,key,want", PHILOX_KAT)
+def test_philox_known_answers(ctr, key, want):
+    words = [torch.tensor([c], dtype=torch.int64) for c in ctr]
+    got = philox.philox4x32(*words, *key)
+    assert tuple(int(w[0]) for w in got) == want
+
+
+def test_philox_noise_is_24_bit_and_indexed():
+    u = philox.uniform(123, (4, 256), leg=0)
+    assert u.dtype == torch.float32 and u.shape == (4, 256)
+    assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
+    assert torch.all(u * 2 ** 24 == torch.floor(u * 2 ** 24))
+    # element i draws counter i whatever the shape: no geometry dependence
+    assert torch.equal(u.reshape(-1), philox.uniform(123, (1024,), leg=0))
+    assert not torch.equal(u, philox.uniform(123, (4, 256), leg=1))
+    assert not torch.equal(u, philox.uniform(124, (4, 256), leg=0))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("n", [128, 300, 1000, 4096])
+def test_quantize_vec_matches_jax(rng, bits, n):
+    x = rng.random(n, dtype=np.float32) * 2 - 1
+    x[: n // 7] = 0.0                              # a zero block -> scale 1.0
+    got = tt.quantize(torch.from_numpy(x), bits)
+    assert_same(got, ct.quantize(jnp.asarray(x), bits))
+    xp = np.pad(x, (0, ct.pad_to(n) - n))
+    g_codes, g_scales = golden.quantize_vec(xp, bits, noise=0.0)
+    np.testing.assert_array_equal(element_codes(got), g_codes)
+    np.testing.assert_array_equal(got.scales.numpy(), g_scales)
+    if ct.pad_to(n) % 512 == 0:                    # the Pallas kernel's tiling
+        assert_same(got, quantize_vec_pallas(jnp.asarray(xp), n, bits))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("shape", [(128, 128), (200, 300), (256, 384),
+                                   (192, 512)])
+def test_quantize_mat_matches_jax(rng, bits, shape):
+    a = rng.random(shape, dtype=np.float32) * 2 - 1
+    a[:64, :64] = 0.0
+    got = tt.quantize(torch.from_numpy(a), bits)
+    assert_same(got, ct.quantize(jnp.asarray(a), bits))
+    ap = np.asarray(ct.formats.pad_matrix(jnp.asarray(a)))
+    assert_same(got, quantize_mat_pallas(jnp.asarray(ap), *shape, bits))
+
+
+@pytest.mark.parametrize("bits", [16, 32])
+def test_quantize_fp_matches_jax(rng, bits):
+    x = rng.random(300, dtype=np.float32) * 2 - 1
+    a = rng.random((200, 300), dtype=np.float32) * 2 - 1
+    assert_same(tt.quantize(torch.from_numpy(x), bits),
+                ct.quantize(jnp.asarray(x), bits))
+    assert_same(tt.quantize(torch.from_numpy(a), bits),
+                ct.quantize(jnp.asarray(a), bits))
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16, 32])
+def test_restore_matches_jax(rng, bits):
+    x = rng.random(1000, dtype=np.float32) * 2 - 1
+    a = rng.random((200, 300), dtype=np.float32) * 2 - 1
+    for arr in (x, a):
+        jq = ct.quantize(jnp.asarray(arr), bits)
+        got = tt.restore(to_torch(jq))
+        assert_same(got, ct.restore(jq))
+
+
+def test_sr_codes_op_order_and_clamp():
+    """mult = qm/s first, then floor(|x|*mult + u); the clamp binds when
+    the absmax element plus noise crosses qm + 1."""
+    s = torch.tensor([3.0, 3.0, 3.0, 0.1])
+    x = torch.tensor([3.0, -3.0, 1.5, -0.05])
+    u = torch.tensor([1 - 2 ** -24, 0.99, 0.0, 0.5])
+    q = _core.sr_codes(x, s, 4, u)
+    assert q.tolist() == [7, -7, 3, -4]
+    # torch's scalar/tensor divide is reciprocal * scalar; the port divides
+    # tensor by tensor so every quotient is the IEEE one
+    s = torch.from_numpy(np.random.default_rng(1).random(1 << 16,
+                                                         dtype=np.float32))
+    np.testing.assert_array_equal(_core.div(7.0, s).numpy(),
+                                  np.float32(7.0) / s.numpy())
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_sr_unbiased_and_reproducible(rng, bits):
+    x = rng.random(2048, dtype=np.float32) * 2 - 1
+    xt = torch.from_numpy(x)
+    qm = 7.0 if bits == 4 else 127.0
+    draws = []
+    for s in range(16):
+        q = tt.quantize(xt, bits, generator=torch.Generator().manual_seed(s))
+        draws.append(tt.restore(q).values.numpy()[:2048])
+    scales = tt.quantize(xt, bits).scales.numpy()
+    lsb = np.repeat(scales / qm, 64)[:2048]
+    err = np.mean(draws, axis=0) - x
+    assert np.all(np.abs(err) <= lsb)              # mean within 1 LSB
+    assert abs(float(np.mean(err / lsb))) < 0.05   # and centred
+    assert np.all(np.abs(draws[0] - x) < lsb * (1 + 1e-6))
+    assert any(not np.array_equal(draws[0], d) for d in draws[1:])
+    again = tt.quantize(xt, bits, generator=torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(tt.restore(again).values.numpy()[:2048],
+                                  draws[0])
+    np.testing.assert_array_equal(tt.restore(tt.quantize(xt, bits, 17))
+                                  .values.numpy(),
+                                  tt.restore(tt.quantize(xt, bits, 17))
+                                  .values.numpy())
+
+
+def test_sr_noise_follows_element_index(rng):
+    """A prefix of a vector quantizes to a prefix of the codes under the
+    same seed: the noise of an element depends on its index only."""
+    x = torch.from_numpy(rng.random(1024, dtype=np.float32) * 2 - 1)
+    full = tt.quantize(x, 4, generator=99)
+    head = tt.quantize(x[:512], 4, generator=99)
+    assert torch.equal(full.codes[:256], head.codes)
+    a = torch.from_numpy(rng.random((128, 256), dtype=np.float32) - 0.5)
+    qa = tt.quantize(a, 8, generator=5)
+    u = philox.uniform(5, (128, 256), leg=0)
+    want = _core.sr_codes(a, qa.scales.repeat_interleave(64, 0)
+                          .repeat_interleave(64, 1), 8, u)
+    assert torch.equal(qa.codes, want)
+
+
+def test_quantize_keeps_device_and_container_shape():
+    q = tt.quantize(torch.ones(200), 4)
+    assert isinstance(q, tt.QVec4) and q.length == 200
+    assert q.codes.shape == (128,) and q.scales.shape == (4,)
+    assert q.codes.device.type == "cpu"
+    m = tt.quantize(np.ones((130, 70), np.float32), 8)
+    assert isinstance(m, tt.QMat8) and (m.rows, m.cols) == (130, 70)
+    assert m.codes.shape == (256, 128) and m.scales.shape == (4, 2)
+    with pytest.raises(ValueError):
+        tt.quantize(torch.ones(2, 2, 2), 4)

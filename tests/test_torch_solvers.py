@@ -1,0 +1,159 @@
+"""clover_tpu_torch solvers (the slice as a whole, plain versions on the
+CPU) against clover_tpu.
+
+Tolerances: each stage of an iteration -- the two fused MVM+AXPY legs and
+the threshold -- agrees with clover_tpu within the MVM allowance (1 LSB,
+rtol 1e-5) or exactly (threshold) when fed the same inputs.  A whole
+iteration agrees within 1 LSB whenever the MVM intermediates do.  Where
+an intermediate's band absmax lands on the other side of a floor (the
+absmax element's |y| * (7/s) is within an ulp of 7, so a 1-ulp sum-order
+difference moves its code 7 <-> 6 and the next band scale by 1/7), the
+trajectories part, so long solves are compared by their recovery regime,
+as tests/test_solvers.py compares batched and single solves.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import clover_tpu as ct
+import clover_tpu_torch as tt
+from clover_tpu.models import run_gd_accuracy, run_iht_accuracy
+from clover_tpu.models.accuracy import ACCURACY_MU, GD_MU
+from clover_tpu.models.problems import (make_gd_problem_reference,
+                                        make_iht_problem_reference)
+from clover_tpu.models.solvers import _iteration as jax_iteration
+from clover_tpu_torch.models.solvers import _iteration, _op_seeds
+from torch_helpers import assert_same, assert_within_lsb, to_torch
+
+
+def _instance(seed, m, n, k):
+    rng = np.random.default_rng(seed)
+    phi = rng.random((m, n), dtype=np.float32) * 2 - 1
+    xs = np.zeros(n, np.float32)
+    xs[rng.permutation(n)[:k]] = 1.0
+    x0 = rng.random(n, dtype=np.float32) * 2 - 1
+    jq = ct.quantize(jnp.asarray(phi), 4)
+    return (jq, ct.transpose(jq), ct.quantize(jnp.asarray(phi @ xs), 4),
+            ct.quantize(jnp.asarray(x0), 4))
+
+
+def test_iteration_matches_jax():
+    mu, agreed = 0.004, 0
+    for seed, (m, n, k) in enumerate([(128, 256, 16), (128, 256, 16),
+                                      (256, 512, 32), (512, 1024, 64)]):
+        jargs = _instance(seed, m, n, k)
+        jPhi, jPhiT, jy, jx = jargs
+        Phi, PhiT, y, x = (to_torch(q) for q in jargs)
+        # stage by stage, from the same inputs
+        t2 = tt.mvm_axpy(Phi, x, y, -1.0)
+        jt2 = ct.mvm_axpy(jPhi, jx, jy, -1.0)
+        x1 = tt.mvm_axpy(PhiT, to_torch(jt2), x, mu)
+        jx1 = ct.mvm_axpy(jPhiT, jt2, jx, jnp.float32(mu))
+        assert_within_lsb(tt.mvm(Phi, x), ct.mvm(jPhi, jx))
+        assert_within_lsb(tt.mvm(PhiT, to_torch(jt2)), ct.mvm(jPhiT, jt2))
+        assert_same(tt.threshold(to_torch(jx1), k), ct.threshold(jx1, k))
+        # the port's iteration is exactly the composition of its ops
+        got = _iteration(Phi, PhiT, y, x, mu, k, None)
+        assert_same(got, tt.threshold(tt.mvm_axpy(PhiT, t2, x, mu), k))
+        # whole iteration within 1 LSB where the intermediates agree
+        same = (np.array_equal(t2.codes.numpy(), np.asarray(jt2.codes))
+                and np.array_equal(x1.codes.numpy(), np.asarray(jx1.codes)))
+        if same:
+            assert_within_lsb(got, jax_iteration(*jargs, jnp.float32(mu), k,
+                                                 None))
+            agreed += 1
+    assert agreed >= 2
+
+
+def test_iht_reference_instance_trace():
+    """200-epoch deterministic traced IHT on the reference's accuracy
+    instance (512x1024, K=64, tuned mu): same first step within 5%, same
+    plateau regime (final within max(1.3x, +0.05) both ways)."""
+    phi, xs, y = make_iht_problem_reference()
+    want = np.asarray(run_iht_accuracy(4, epochs=200, key=None))
+    q = tt.quantize(torch.from_numpy(phi), 4)
+    res = tt.iht(q, tt.transpose(q), tt.quantize(torch.from_numpy(y), 4),
+                 200, 64, ACCURACY_MU[4],
+                 x_star=tt.QVec32(values=tt.formats.pad_vector(
+                     torch.from_numpy(xs)), length=1024))
+    got = res.trace.numpy()
+    assert got.shape == (200,) and np.all(np.isfinite(got))
+    assert abs(got[0] - want[0]) <= 0.05 * want[0]
+    assert got[-1] <= max(1.3 * want[-1], want[-1] + 0.05)
+    assert want[-1] <= max(1.3 * got[-1], got[-1] + 0.05)
+    assert got[-1] < 0.5 * got[0]
+    assert isinstance(res.x, tt.QVec4) and res.x.length == 1024
+    assert int((tt.unpack_nibbles(res.x.codes) != 0).sum()) <= 64
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_gd_converges(bits):
+    """GD on the reference's GD instance: 8-bit converges as clover_tpu
+    does (final within max(1.3x, +0.01)); 4-bit makes progress."""
+    phi, xs, y = make_gd_problem_reference()
+    q = tt.quantize(torch.from_numpy(phi), bits)
+    res = tt.gd(q, tt.transpose(q), tt.quantize(torch.from_numpy(y), bits),
+                100, GD_MU, x_star=tt.QVec32(values=tt.formats.pad_vector(
+                    torch.from_numpy(xs)), length=256))
+    tr = res.trace.numpy()
+    assert np.all(np.isfinite(tr))
+    if bits == 8:
+        want = np.asarray(run_gd_accuracy(8, iterations=100, key=None))
+        assert tr[-1] < 0.3 * tr[0]
+        assert tr[-1] <= max(1.3 * want[-1], want[-1] + 0.01)
+    else:
+        assert tr.min() < tr[0]
+
+
+def test_iht_seeded_solves_reproduce():
+    jargs = _instance(7, 128, 256, 16)
+    Phi, PhiT, y, _ = (to_torch(q) for q in jargs)
+    a = tt.iht(Phi, PhiT, y, 5, 16, 0.004, generator=123)
+    b = tt.iht(Phi, PhiT, y, 5, 16, 0.004, generator=123)
+    c = tt.iht(Phi, PhiT, y, 5, 16, 0.004,
+               generator=torch.Generator().manual_seed(1))
+    assert_same(a.x, b.x)
+    assert not np.array_equal(a.x.codes.numpy(), c.x.codes.numpy())
+    assert np.all(a.trace.numpy() == 0)        # untraced: zeros, like JAX
+
+
+def test_op_seeds_wrap_like_jax():
+    """Per-op seeds are int32 seed + (j+1)*SEED_OP with wrap-around, the
+    arithmetic of clover_tpu's _op_seeds."""
+    from clover_tpu.models.solvers import _op_seeds as jax_op_seeds
+    for seed in (0, 5, 2 ** 31 - 10, -2 ** 31):
+        want = [int(np.asarray(s).reshape(())) for s in jax_op_seeds(
+            jnp.asarray([seed], jnp.int32))]
+        assert list(_op_seeds(seed)) == want
+    assert _op_seeds(None) == (None,) * 4
+
+
+def test_untraced_solve_never_syncs(monkeypatch):
+    """The solver loop reads nothing back from the device: with every
+    tensor-to-host conversion disabled, an untraced solve still runs."""
+    jargs = _instance(3, 128, 256, 16)
+    Phi, PhiT, y, _ = (to_torch(q) for q in jargs)
+
+    def refuse(*_a, **_k):
+        raise AssertionError("host sync inside the solver loop")
+
+    for name in ("item", "tolist", "cpu", "numpy", "__bool__", "__int__",
+                 "__float__"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    res = tt.iht(Phi, PhiT, y, 3, 16, 0.004, generator=9)
+    monkeypatch.undo()
+    assert isinstance(res.x, tt.QVec4)
+
+
+def test_make_iht_problem():
+    g = torch.Generator().manual_seed(0)
+    phi, x, y = tt.make_iht_problem(128, 256, 16, generator=g)
+    assert phi.shape == (128, 256) and x.shape == (256,) and y.shape == (128,)
+    assert float(phi.min()) >= -1.0 and float(phi.max()) < 1.0
+    assert int(x.count_nonzero()) == 16 and set(x.unique().tolist()) == {0, 1}
+    torch.testing.assert_close(phi @ x, y)
+    p2, x2, _ = tt.make_iht_problem(128, 256, 16)
+    p3, x3, _ = tt.make_iht_problem(128, 256, 16)
+    assert torch.equal(p2, p3) and torch.equal(x2, x3)

@@ -1,0 +1,73 @@
+"""clover_tpu_torch threshold (the 4-bit kernel's plain version) against
+clover_tpu: exact top-K in golden order (|value| descending, index
+ascending), bit-identical codes, scales untouched -- across tie storms,
+integer-valued data, k > nnz and ragged lengths."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+import clover_tpu as ct
+import clover_tpu_torch as tt
+from clover_tpu import golden
+from clover_tpu.kernels.threshold import (threshold4_pallas,
+                                          threshold4_pallas_eligible)
+from clover_tpu.ops.threshold import _threshold4_xla
+from torch_helpers import assert_same, element_codes, to_torch
+
+
+def _cases(rng, n, k):
+    v = rng.random(n, dtype=np.float32) * 2 - 1
+    ints = rng.integers(-3, 4, n).astype(np.float32)
+    storm = np.repeat(rng.random(-(-n // 64), dtype=np.float32), 64)[:n]
+    sparse = np.zeros(n, np.float32)
+    sparse[rng.permutation(n)[:max(1, k // 2)]] = 1.0     # k > nnz: tau == 0
+    return {"uniform": v, "integer": ints, "storm": storm, "sparse": sparse}
+
+
+@pytest.mark.parametrize("n,k", [(256, 3), (300, 50), (1024, 64),
+                                 (4096, 1024), (4096, 257), (16384, 4096)])
+def test_threshold4_matches_jax(rng, n, k):
+    for name, v in _cases(rng, n, k).items():
+        jq = ct.quantize(jnp.asarray(v), 4)
+        tq = to_torch(jq)
+        got = tt.threshold(tq, k)
+        assert got.scales is tq.scales, name
+        assert_same(got, ct.threshold(jq, k))
+        assert_same(got, _threshold4_xla(jq, k))
+        if threshold4_pallas_eligible(jq, k) and n <= 4096:
+            assert_same(got, threshold4_pallas(jq, k))
+        want = golden.threshold(element_codes(jq), np.asarray(jq.scales), k,
+                                n, 4)
+        np.testing.assert_array_equal(element_codes(got), want)
+
+
+def test_threshold_edge_k():
+    q = tt.quantize(torch.linspace(-1, 1, 300), 4)
+    assert tt.threshold(q, 300) is q and tt.threshold(q, 10 ** 6) is q
+    zero = tt.threshold(q, 0)
+    assert torch.all(zero.codes == 0x08) and zero.scales is q.scales
+    one = tt.threshold(q, 1)
+    assert int((tt.unpack_nibbles(one.codes) != 0).sum()) == 1
+    with pytest.raises(ValueError):
+        tt.threshold(q, -1)
+
+
+def test_threshold4_ties_break_to_lower_index():
+    """Identical values: the lowest indices win, across block boundaries
+    and both nibble halves of a byte."""
+    v = torch.ones(512)
+    q = tt.quantize(v, 4)
+    for k in (1, 31, 33, 64, 65, 200):
+        kept = tt.unpack_nibbles(tt.threshold(q, k).codes) != 0
+        assert torch.equal(kept, torch.arange(512) < k), k
+
+
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_threshold_dense_matches_jax(rng, bits):
+    n, k = 1000, 97
+    for v in (rng.random(n, dtype=np.float32) * 2 - 1,
+              rng.integers(-3, 4, n).astype(np.float32)):
+        jq = ct.quantize(jnp.asarray(v), bits)
+        assert_same(tt.threshold(to_torch(jq), k), ct.threshold(jq, k))
