@@ -1,24 +1,35 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-The main path is the pure 4-bit IHT solve at m=8192, n=16384, K=4096 with
-the step size of clover_tpu's tuned table for that size: quantize Phi and
-y, transpose Phi, then per iteration two fused MVM+AXPY legs and one exact
-top-K threshold.  Phases, each of which raises on failure:
+The main paths are three IHT solves at m=8192, n=16384, K=4096, each with
+the step size and iteration count of clover_tpu's tuned tables for that
+size (copied as data in clover_tpu_torch/models/tuned.py): quantize Phi
+and y, transpose Phi, then per iteration two fused MVM+AXPY legs and one
+exact top-K threshold.
+
+- pure 4-bit, untraced;
+- mixed 4x8 (4-bit Phi, 8-bit y and x), traced: every iteration restores
+  x and records ||x - x*|| / ||x*|| on the device;
+- pure 8-bit, traced.
+
+Phases, each of which raises on failure:
 
 1. card and build: the card's name and power limit, torch/CUDA versions,
    and the nvcc build of clover_tpu_torch/csrc/*.cu (into build/);
 2. each kernel against its plain torch version on the card, at the main
-   path's shapes and at a ragged 200x300, deterministic and SR:
-   quantize, transpose and threshold bit-identical, MVM/AXPY codes within
-   1 LSB and scales within rtol 1e-6; times by CUDA events (median of 5
-   windows of 20 back-to-back launches; plain versions 3 single calls);
-3. the main path through the public entry points: Phi and y quantized
+   paths' shapes and at a ragged 200x300, deterministic and SR:
+   quantize, restore, transpose and threshold bit-identical, MVM/AXPY
+   codes within 1 LSB and scales within rtol 1e-6; device times by CUDA
+   events (median of 5 windows of 20 back-to-back launches queued behind
+   a spin kernel; plain versions 3 single calls);
+3. the main paths through the public entry points: Phi and y quantized
    with a seeded generator (stochastic rounding), deterministic
-   iterations as in the search that tuned mu; launch counts, relative
-   recovery error, iterations/s;
-4. a deterministic 2-iteration solve, kernels against plain versions.
+   iterations as in the search that tuned mu; exact launch counts,
+   relative recovery error (the trace's last entry against a host-side
+   restore), iterations/s traced and untraced;
+4. a deterministic solve per configuration, kernels against plain
+   versions.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
@@ -27,6 +38,7 @@ result and exits 2.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -34,12 +46,15 @@ import sys
 import time
 
 M, N, K = 8192, 16384, 4096
-MU = 0.0002138596817016602    # clover_tpu/models/tuned.py IHT_4BIT[(8192, 16384)]
-ITERS = 2                     # the tuned iteration count for that size
 TIMED_ITERS = 100
 SEED = 0
 MVM_SCALE_RTOL = 1e-6
 SOLVE_ERR_TOL = 0.01
+TRACE_TOL = 1e-6
+SPIN_CYCLES = 1 << 23         # ~4-5 ms at the H100's clocks: time enough to
+                              # enqueue 20 kernel calls or one plain call
+CONFIGS = ("4", "4x8", "8")
+TRACED = {"4": False, "4x8": True, "8": True}
 
 # kernel -> (CUDA source, pallas_call it replaces)
 KERNEL_INFO = {
@@ -52,18 +67,48 @@ KERNEL_INFO = {
     "mvm4": ("clover_tpu_torch/csrc/mvm.cu", "clover_tpu/kernels/mvm.py:552"),
     "threshold4": ("clover_tpu_torch/csrc/threshold.cu",
                    "clover_tpu/kernels/threshold.py:394"),
+    "restore_vec": ("clover_tpu_torch/csrc/restore.cu",
+                    "clover_tpu/kernels/restore.py:79"),
+    "transpose8": ("clover_tpu_torch/csrc/transpose.cu",
+                   "clover_tpu/kernels/transpose.py:94"),
+    "mvm8": ("clover_tpu_torch/csrc/mvm.cu", "clover_tpu/kernels/mvm.py:552"),
+    "threshold8": ("clover_tpu_torch/csrc/threshold.cu",
+                   "clover_tpu/kernels/threshold.py:180"),
 }
+
+
+@functools.cache
+def config(name: str):
+    """-> (Phi bits, y/x bits, iterations, mu, quality) from the tuned
+    tables at (M, N)."""
+    from clover_tpu_torch.models import tuned
+    if name == "4":
+        row = tuned.IHT_4BIT[(M, N)]
+        return 4, 4, row["iters"], row["mu"], row["quality"]
+    if name == "4x8":
+        row = tuned.IHT_MIXED_4X8[(M, N)]
+        target = tuned.IHT_MIXED_FAMILY[(M, N)]["quality_target"]
+        return 4, 8, row["iters"], row["mu"], target
+    row = tuned.IHT_PURE_FAMILY[(M, N)]
+    return 8, 8, *row[8], row["quality_target"]
 
 
 def median_ms(fn, reps: int, inner: int) -> float:
     """Median over ``reps`` windows of the mean CUDA-event time of
-    ``inner`` back-to-back calls, after one warm-up call."""
+    ``inner`` back-to-back calls, after one warm-up call.
+
+    Each window starts behind a spin kernel that keeps the card busy while
+    the host enqueues the window's calls, so the events time the device.
+    Without it a kernel shorter than its host-side launch cost (the
+    threshold, the restore: 1-20 us) is timed at the host's launch rate,
+    which varies between calls by 2x."""
     import torch
     fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         for _ in range(inner):
             fn()
@@ -74,11 +119,15 @@ def median_ms(fn, reps: int, inner: int) -> float:
     return times[len(times) // 2]
 
 
+def codes_of(codes, bits: int):
+    """Element codes of raw 4-bit (packed) or 8-bit codes."""
+    from clover_tpu_torch.formats import unpack_nibbles
+    return unpack_nibbles(codes) if bits == 4 else codes
+
+
 def dequant(codes, scales, bits: int = 4):
     """f32 values of raw codes/scales, for measuring kernel-plain gaps."""
-    import torch
-    from clover_tpu_torch.formats import unpack_nibbles
-    c = (unpack_nibbles(codes) if bits == 4 else codes).to(torch.float32)
+    c = codes_of(codes, bits).float()
     s = scales / (7.0 if bits == 4 else 127.0)
     s = (s.repeat_interleave(64) if s.dim() == 1
          else s.repeat_interleave(64, 0).repeat_interleave(64, 1))
@@ -92,39 +141,49 @@ class Report:
         self.err = {name: 0.0 for name in KERNEL_INFO}
         self.ms = {}
         self.plain_ms = {}
-        self.leg2_ms = 0.0
+        self.leg_ms = {}     # (mode, leg) -> kernel ms of an MVM+AXPY leg
 
     def exact(self, name: str, what: str, got, want, bits: int = 4):
-        """Kernel output (codes, scales) must equal the plain one."""
+        """Kernel output must equal the plain one: (codes, scales) pairs,
+        or f32 values compared bit for bit."""
         import torch
-        (gc, gs), (wc, ws) = got, want
-        if not (torch.equal(gc, wc) and torch.equal(gs, ws)):
-            bad = int((gc != wc).sum())
-            raise AssertionError(f"{name} {what}: kernel != plain "
-                                 f"({bad} code bytes differ)")
-        self.err[name] = max(self.err[name], float(
-            (dequant(gc, gs, bits) - dequant(wc, ws, bits)).abs().max()))
-        print(f"  {name:13s} {what:34s} bit-identical")
+        if isinstance(got, tuple):
+            (gc, gs), (wc, ws) = got, want
+            same = torch.equal(gc, wc) and torch.equal(gs, ws)
+            bad = f"{int((gc != wc).sum())} code bytes differ"
+            got, want = dequant(gc, gs, bits), dequant(wc, ws, bits)
+        else:
+            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            bad = f"{int((got != want).sum())} values differ"
+        if not same:
+            raise AssertionError(f"{name} {what}: kernel != plain ({bad})")
+        self.err[name] = max(self.err[name],
+                             float((got - want).abs().max()))
+        print(f"  {name:13s} {what:40s} bit-identical")
 
-    def close(self, name: str, what: str, got, want):
+    def close(self, name: str, what: str, got, want, bits: int = 4):
         """MVM/AXPY: codes within 1 LSB, scales within MVM_SCALE_RTOL."""
-        from clover_tpu_torch.formats import unpack_nibbles
         (gc, gs), (wc, ws) = got, want
-        lsb = int((unpack_nibbles(gc).int() - unpack_nibbles(wc).int())
+        lsb = int((codes_of(gc, bits).int() - codes_of(wc, bits).int())
                   .abs().max())
         rel = float(((gs - ws).abs() / ws.abs()).max())
         if lsb > 1 or rel > MVM_SCALE_RTOL:
             raise AssertionError(f"{name} {what}: codes differ by {lsb} LSB, "
                                  f"scales by rtol {rel:.3g}")
         self.err[name] = max(self.err[name], float(
-            (dequant(gc, gs) - dequant(wc, ws)).abs().max()))
-        print(f"  {name:13s} {what:34s} max {lsb} LSB, scale rtol {rel:.3g}")
+            (dequant(gc, gs, bits) - dequant(wc, ws, bits)).abs().max()))
+        print(f"  {name:13s} {what:40s} max {lsb} LSB, scale rtol {rel:.3g}")
 
     def time(self, name: str, kernel, plain):
         self.ms[name] = median_ms(kernel, 5, 20)
         self.plain_ms[name] = median_ms(plain, 3, 1)
         print(f"  {name:13s} kernel {self.ms[name]:.4f} ms   plain "
               f"{self.plain_ms[name]:.4f} ms")
+
+    def time_leg(self, mode: str, leg: str, kernel):
+        self.leg_ms[mode, leg] = median_ms(kernel, 5, 20)
+        print(f"  {'mvm ' + mode:13s} {leg} leg kernel "
+              f"{self.leg_ms[mode, leg]:.4f} ms")
 
 
 def phase_build():
@@ -142,116 +201,202 @@ def phase_build():
     built = _build.library()
     print(f"built {built.path.name} in {built.build_seconds:.1f} s")
     for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("Compiling entry", "registers", "spill")):
             print("  ptxas:", line.strip())
 
 
-def phase_kernels(rep: Report, phi, gen):
-    """Every kernel against its plain version, on the main path's shapes."""
-    import torch
-    import clover_tpu_torch as tt
-    from clover_tpu_torch.kernels import (
-        mvm4_cuda, mvm4_plain, quantize_mat_cuda, quantize_mat_plain,
-        quantize_vec_cuda, quantize_vec_plain, seed_from, threshold4_cuda,
-        threshold4_plain, transpose4_cuda, transpose4_plain)
-    print("== 2. kernels against their plain versions on the card")
-    dev = phi.device
-    y = torch.rand(M, generator=gen, device=dev) * 2 - 1
-    xf = torch.randn(N, generator=gen, device=dev)
-    modes = [("det", 0, False), ("SR", seed_from(gen)[0], True)]
+def mvm_forms(bits_a: int, bits_x: int):
+    """(kernel form, plain version) of the MVM for one mode."""
+    from clover_tpu_torch.kernels import (mvm4_cuda, mvm4_plain, mvm8_cuda,
+                                          mvm8_plain)
+    if bits_x == 4:
+        return mvm4_cuda, mvm4_plain
+    return (functools.partial(mvm8_cuda, bits_a),
+            functools.partial(mvm8_plain, bits_a))
 
-    for mode, seed, noise in modes:
-        rep.exact("quantize_mat", f"{M}x{N} {mode}",
-                  quantize_mat_cuda(phi, 4, seed, noise),
-                  quantize_mat_plain(phi, 4, seed, noise))
-        for n in (M, N):
-            v = y if n == M else xf
-            rep.exact("quantize_vec", f"{n} {mode}",
-                      quantize_vec_cuda(v, 4, seed, noise),
-                      quantize_vec_plain(v, 4, seed, noise))
+
+def check_quantize(rep: Report, phi, y, xf, modes):
+    from clover_tpu_torch.kernels import (quantize_mat_cuda,
+                                          quantize_mat_plain,
+                                          quantize_vec_cuda,
+                                          quantize_vec_plain)
+    for bits in (4, 8):
+        for mode, seed, noise in modes:
+            rep.exact("quantize_mat", f"{M}x{N} {bits}-bit {mode}",
+                      quantize_mat_cuda(phi, bits, seed, noise),
+                      quantize_mat_plain(phi, bits, seed, noise), bits)
+            for v in (y, xf):
+                rep.exact("quantize_vec", f"{v.numel()} {bits}-bit {mode}",
+                          quantize_vec_cuda(v, bits, seed, noise),
+                          quantize_vec_plain(v, bits, seed, noise), bits)
     rep.time("quantize_mat", lambda: quantize_mat_cuda(phi, 4, 1, True),
              lambda: quantize_mat_plain(phi, 4, 1, True))
     rep.time("quantize_vec", lambda: quantize_vec_cuda(y, 4, 1, True),
              lambda: quantize_vec_plain(y, 4, 1, True))
 
-    qphi = tt.quantize(phi, 4)
-    ct_k, st = transpose4_cuda(qphi.codes), qphi.scales.T.contiguous()
-    rep.exact("transpose4", f"{M}x{N}", (ct_k, st),
-              (transpose4_plain(qphi.codes), st))
-    rep.time("transpose4", lambda: transpose4_cuda(qphi.codes),
-             lambda: transpose4_plain(qphi.codes))
-    phit = (ct_k, st)
 
-    qy, qx = tt.quantize(y, 4), tt.quantize(xf, 4)
-    leg1 = (qphi.codes, qphi.scales, qx.codes, qx.scales, qy.codes, qy.scales,
-            -1.0)
-    for mode, seed, noise in modes:
-        s2 = seed + 1
-        t2 = mvm4_cuda(*leg1, seed, noise, s2, noise)
-        rep.close("mvm4", f"Phi leg {M}x{N} alpha=-1 {mode}", t2,
-                  mvm4_plain(*leg1, seed, noise, s2, noise))
-        leg2 = (*phit, *t2, qx.codes, qx.scales, MU)
-        rep.close("mvm4", f"PhiT leg {N}x{M} alpha=mu {mode}",
-                  mvm4_cuda(*leg2, seed, noise, s2, noise),
-                  mvm4_plain(*leg2, seed, noise, s2, noise))
-        rep.close("mvm4", f"Phi mvm (no AXPY) {mode}",
-                  mvm4_cuda(*leg1[:4], seed1=seed, noise1=noise),
-                  mvm4_plain(*leg1[:4], seed1=seed, noise1=noise))
-    rep.time("mvm4", lambda: mvm4_cuda(*leg1, 1, True, 2, True),
-             lambda: mvm4_plain(*leg1, 1, True, 2, True))
-    leg2 = (*phit, *mvm4_cuda(*leg1), qx.codes, qx.scales, MU)
-    rep.leg2_ms = median_ms(lambda: mvm4_cuda(*leg2, 1, True, 2, True), 5, 20)
-    print(f"  {'mvm4':13s} PhiT leg kernel {rep.leg2_ms:.4f} ms")
+def check_transpose(rep: Report, qphi):
+    """-> {bits: (PhiT codes, PhiT scales)} from the kernels."""
+    from clover_tpu_torch.kernels import (transpose4_cuda, transpose4_plain,
+                                          transpose8_cuda, transpose8_plain)
+    phit = {}
+    for bits, cuda, plain in ((4, transpose4_cuda, transpose4_plain),
+                              (8, transpose8_cuda, transpose8_plain)):
+        q, name = qphi[bits], f"transpose{bits}"
+        st = q.scales.T.contiguous()
+        phit[bits] = (cuda(q.codes), st)
+        rep.exact(name, f"{M}x{N}", phit[bits], (plain(q.codes), st), bits)
+        rep.time(name, lambda: cuda(q.codes), lambda: plain(q.codes))
+    return phit
 
-    # threshold: a solver iterate, integer-valued data, a tie storm, k > nnz
+
+def check_mvm(rep: Report, qphi, phit, qy, qx, modes):
+    """Both legs of every mode, with and without the AXPY; -> {mode: the
+    PhiT leg's output}, a solver iterate."""
+    iterates = {}
+    for bits_a, bits_x in ((4, 4), (4, 8), (8, 8)):
+        mode, name = f"{bits_a}x{bits_x}", f"mvm{bits_x}"
+        cuda, plain = mvm_forms(bits_a, bits_x)
+        a, y, x = qphi[bits_a], qy[bits_x], qx[bits_x]
+        leg1 = (a.codes, a.scales, x.codes, x.scales, y.codes, y.scales, -1.0)
+        mu = config("4" if bits_x == 4 else "8" if bits_a == 8 else "4x8")[3]
+        for what, seed, noise in modes:
+            s2 = seed + 1
+            t2 = cuda(*leg1, seed, noise, s2, noise)
+            rep.close(name, f"{mode} Phi leg alpha=-1 {what}", t2,
+                      plain(*leg1, seed, noise, s2, noise), bits_x)
+            leg2 = (*phit[bits_a], *t2, x.codes, x.scales, mu)
+            rep.close(name, f"{mode} PhiT leg alpha=mu {what}",
+                      cuda(*leg2, seed, noise, s2, noise),
+                      plain(*leg2, seed, noise, s2, noise), bits_x)
+            rep.close(name, f"{mode} Phi mvm (no AXPY) {what}",
+                      cuda(*leg1[:4], seed1=seed, noise1=noise),
+                      plain(*leg1[:4], seed1=seed, noise1=noise), bits_x)
+        leg2 = (*phit[bits_a], *cuda(*leg1), x.codes, x.scales, mu)
+        iterates[mode] = cuda(*leg2)
+        # the per-kernel time is the Phi leg of its heaviest mode (8x8 for
+        # mvm8); every leg's time is printed
+        if mode != "4x8":
+            rep.time(name, lambda: cuda(*leg1, 1, True, 2, True),
+                     lambda: plain(*leg1, 1, True, 2, True))
+        rep.time_leg(mode, "Phi", lambda: cuda(*leg1, 1, True, 2, True))
+        rep.time_leg(mode, "PhiT", lambda: cuda(*leg2, 1, True, 2, True))
+    return iterates
+
+
+def check_threshold(rep: Report, iterates, xf, gen):
+    """A solver iterate, integer-valued data, a tie storm, k > nnz, dense
+    SR data; k in {K, 1, 0}."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch.kernels import (threshold4_cuda, threshold4_plain,
+                                          threshold8_cuda, threshold8_plain)
+    dev = xf.device
     ints = torch.randint(-3, 4, (N,), generator=gen, device=dev).float()
     storm = torch.rand(N // 64, generator=gen, device=dev).repeat_interleave(64)
     sparse = torch.zeros(N, device=dev)
     sparse[torch.randperm(N, generator=gen, device=dev)[:K // 2]] = 1.0
-    iterate = tt.QVec4(*mvm4_cuda(*leg2), length=N)
-    cases = [("solver iterate", iterate), ("integer-valued", tt.quantize(ints, 4)),
-             ("tie storm", tt.quantize(storm, 4)),
-             ("k > nnz", tt.quantize(sparse, 4)), ("dense SR", tt.quantize(
-                 xf, 4, generator=gen))]
-    for what, q in cases:
-        for k in (K, 1, 0):
-            rep.exact("threshold4", f"n={N} k={k} {what}",
-                      (threshold4_cuda(q.codes, q.scales, k), q.scales),
-                      (threshold4_plain(q.codes, q.scales, k), q.scales))
-    rep.time("threshold4", lambda: threshold4_cuda(iterate.codes,
-                                                    iterate.scales, K),
-             lambda: threshold4_plain(iterate.codes, iterate.scales, K))
+    for bits, it, cuda, plain in (
+            (4, iterates["4x4"], threshold4_cuda, threshold4_plain),
+            (8, iterates["8x8"], threshold8_cuda,
+             lambda c, s, k: threshold8_plain(c, s, k, N))):
+        name = f"threshold{bits}"
+        cases = [("solver iterate", it),
+                 ("integer-valued", tt.quantize(ints, bits)),
+                 ("tie storm", tt.quantize(storm, bits)),
+                 ("k > nnz", tt.quantize(sparse, bits)),
+                 ("dense SR", tt.quantize(xf, bits, generator=gen))]
+        for what, q in cases:
+            c, s = (q if isinstance(q, tuple) else (q.codes, q.scales))
+            for k in (K, 1, 0):
+                rep.exact(name, f"n={N} k={k} {what}",
+                          (cuda(c, s, k), s), (plain(c, s, k), s), bits)
+        rep.time(name, lambda: cuda(*it, K), lambda: plain(*it, K))
 
-    # ragged logical size: padding through every kernel
+
+def check_restore(rep: Report, y, xf, gen):
+    import clover_tpu_torch as tt
+    from clover_tpu_torch.kernels import restore_vec_cuda, restore_vec_plain
+    for bits in (4, 8):
+        for v in (y, xf):
+            for what, g in (("det", None), ("SR", gen)):
+                q = tt.quantize(v, bits, generator=g)
+                rep.exact("restore_vec", f"{v.numel()} {bits}-bit {what}",
+                          restore_vec_cuda(q.codes, q.scales, bits),
+                          restore_vec_plain(q.codes, q.scales, bits))
+    q = tt.quantize(xf, 8)
+    rep.time("restore_vec", lambda: restore_vec_cuda(q.codes, q.scales, 8),
+             lambda: restore_vec_plain(q.codes, q.scales, 8))
+
+
+def check_ragged(rep: Report, gen, modes):
+    """A logical 200x300: padding through every kernel."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch import kernels as kn
+    dev = gen.device
     a = torch.rand(200, 300, generator=gen, device=dev) * 2 - 1
     ap = tt.formats.pad_matrix(a).contiguous()
+    vp = tt.formats.pad_vector(a[0]).contiguous()
     for mode, seed, noise in modes:
-        rep.exact("quantize_mat", f"200x300 {mode}",
-                  quantize_mat_cuda(ap, 4, seed, noise),
-                  quantize_mat_plain(ap, 4, seed, noise))
-        rep.exact("quantize_mat", f"200x300 8-bit {mode}",
-                  quantize_mat_cuda(ap, 8, seed, noise),
-                  quantize_mat_plain(ap, 8, seed, noise), bits=8)
-        vp = tt.formats.pad_vector(a[0]).contiguous()
-        rep.exact("quantize_vec", f"300 {mode}",
-                  quantize_vec_cuda(vp, 4, seed, noise),
-                  quantize_vec_plain(vp, 4, seed, noise))
-        rep.exact("quantize_vec", f"300 8-bit {mode}",
-                  quantize_vec_cuda(vp, 8, seed, noise),
-                  quantize_vec_plain(vp, 8, seed, noise), bits=8)
-        qa = tt.quantize(a, 4, generator=seed if noise else None)
-        sat = qa.scales.T.contiguous()
-        rep.exact("transpose4", f"200x300 {mode}",
-                  (transpose4_cuda(qa.codes), sat),
-                  (transpose4_plain(qa.codes), sat))
-        qv, qu = tt.quantize(a[1], 4), tt.quantize(a[:, 2], 4)
-        args = (qa.codes, qa.scales, qv.codes, qv.scales, qu.codes,
-                qu.scales, 0.37, seed, noise, seed + 1, noise)
-        rep.close("mvm4", f"200x300 alpha=0.37 {mode}", mvm4_cuda(*args),
-                  mvm4_plain(*args))
-        rep.exact("threshold4", f"n=300 k=50 {mode}",
-                  (threshold4_cuda(qv.codes, qv.scales, 50), qv.scales),
-                  (threshold4_plain(qv.codes, qv.scales, 50), qv.scales))
+        g = seed if noise else None
+        for bits in (4, 8):
+            rep.exact("quantize_mat", f"200x300 {bits}-bit {mode}",
+                      kn.quantize_mat_cuda(ap, bits, seed, noise),
+                      kn.quantize_mat_plain(ap, bits, seed, noise), bits)
+            rep.exact("quantize_vec", f"300 {bits}-bit {mode}",
+                      kn.quantize_vec_cuda(vp, bits, seed, noise),
+                      kn.quantize_vec_plain(vp, bits, seed, noise), bits)
+            qa = tt.quantize(a, bits, generator=g)
+            sat = qa.scales.T.contiguous()
+            cuda = kn.transpose4_cuda if bits == 4 else kn.transpose8_cuda
+            plain = kn.transpose4_plain if bits == 4 else kn.transpose8_plain
+            rep.exact(f"transpose{bits}", f"200x300 {mode}",
+                      (cuda(qa.codes), sat), (plain(qa.codes), sat), bits)
+            qv = tt.quantize(a[1], bits, generator=g)
+            rep.exact("restore_vec", f"300 {bits}-bit {mode}",
+                      kn.restore_vec_cuda(qv.codes, qv.scales, bits),
+                      kn.restore_vec_plain(qv.codes, qv.scales, bits))
+            cuda, plain = ((kn.threshold4_cuda, kn.threshold4_plain)
+                           if bits == 4 else
+                           (kn.threshold8_cuda,
+                            lambda c, s, k: kn.threshold8_plain(c, s, k, 300)))
+            rep.exact(f"threshold{bits}", f"n=300 k=50 {mode}",
+                      (cuda(qv.codes, qv.scales, 50), qv.scales),
+                      (plain(qv.codes, qv.scales, 50), qv.scales), bits)
+        for bits_a, bits_x in ((4, 4), (4, 8), (8, 8)):
+            qa = tt.quantize(a, bits_a, generator=g)
+            qv = tt.quantize(a[1], bits_x)
+            qu = tt.quantize(a[:, 2], bits_x)
+            cuda, plain = mvm_forms(bits_a, bits_x)
+            args = (qa.codes, qa.scales, qv.codes, qv.scales, qu.codes,
+                    qu.scales, 0.37, seed, noise, seed + 1, noise)
+            rep.close(f"mvm{bits_x}", f"{bits_a}x{bits_x} 200x300 alpha=0.37 "
+                      f"{mode}", cuda(*args), plain(*args), bits_x)
+            rep.close(f"mvm{bits_x}", f"{bits_a}x{bits_x} 200x300 no AXPY "
+                      f"{mode}", cuda(*args[:4], seed1=seed, noise1=noise),
+                      plain(*args[:4], seed1=seed, noise1=noise), bits_x)
+
+
+def phase_kernels(rep: Report, phi, gen):
+    """Every kernel against its plain version, on the main paths' shapes."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch.kernels import seed_from
+    print("== 2. kernels against their plain versions on the card")
+    dev = phi.device
+    y = torch.rand(M, generator=gen, device=dev) * 2 - 1
+    xf = torch.randn(N, generator=gen, device=dev)
+    modes = [("det", 0, False), ("SR", seed_from(gen)[0], True)]
+    check_quantize(rep, phi, y, xf, modes)
+    check_restore(rep, y, xf, gen)
+    qphi = {bits: tt.quantize(phi, bits) for bits in (4, 8)}
+    phit = check_transpose(rep, qphi)
+    qy = {bits: tt.quantize(y, bits) for bits in (4, 8)}
+    qx = {bits: tt.quantize(xf, bits) for bits in (4, 8)}
+    iterates = check_mvm(rep, qphi, phit, qy, qx, modes)
+    check_threshold(rep, iterates, xf, gen)
+    check_ragged(rep, gen, modes)
 
 
 def recovery_error(x, x_star) -> float:
@@ -263,81 +408,122 @@ def recovery_error(x, x_star) -> float:
     return float(torch.linalg.norm(xr - xs) / torch.linalg.norm(xs))
 
 
-def phase_main_path(rep: Report, phi, x_star, y):
+def expected_counts(bits_a: int, bits_v: int, iters: int, traced: bool):
+    counts = dict.fromkeys(KERNEL_INFO, 0)
+    counts["quantize_mat"] = counts["quantize_vec"] = 1
+    counts[f"transpose{bits_a}"] = 1
+    counts[f"mvm{bits_v}"] = 2 * iters
+    counts[f"threshold{bits_v}"] = iters
+    counts["restore_vec"] = iters if traced else 0
+    return counts
+
+
+def timed_solve(qphi, qphit, qy, iters, mu, xs) -> tuple[float, float]:
+    """-> (host-clock ms, CUDA-event ms) per iteration of a solve of
+    TIMED_ITERS iterations, after a 5-iteration warm-up."""
     import torch
     import clover_tpu_torch as tt
-    from clover_tpu_torch import kernels
-    print(f"== 3. main path: 4-bit IHT {M}x{N} K={K} mu={MU}")
-    kernels.reset_launch_counts()
-    gen = torch.Generator(device=phi.device).manual_seed(SEED + 1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    qphi = tt.quantize(phi, 4, generator=gen)
-    qy = tt.quantize(y, 4, generator=gen)
-    qphit = tt.transpose(qphi)
-    # deterministic iterations: the tuned mu comes from a search with
-    # stochastic rounding off, and SR iterations diverge at that mu
-    res = tt.iht(qphi, qphit, qy, ITERS, K, MU)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
-    expected = {"quantize_mat": 1, "quantize_vec": 1, "transpose4": 1,
-                "mvm4": 2 * ITERS, "threshold4": ITERS}
-    print(f"  launches {counts} in {wall * 1e3:.2f} ms")
-    if counts != expected:
-        raise AssertionError(f"launch counts {counts} != expected {expected}")
-    err = recovery_error(res.x, x_star)
-    print(f"  relative recovery error after {ITERS} iterations: {err:.6f}")
-    if not math.isfinite(err) or err >= 1.0:
-        raise AssertionError(f"recovery error {err} not below 1.0")
-    if res.x.codes.shape != (N // 2,) or res.x.scales.shape != (N // 64,):
-        raise AssertionError("solution container has the wrong shape")
-
-    tt.iht(qphi, qphit, qy, 5, K, MU)                     # warm-up
+    tt.iht(qphi, qphit, qy, 5, K, mu, x_star=xs)
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     t0 = time.perf_counter()
     start.record()
-    tt.iht(qphi, qphit, qy, TIMED_ITERS, K, MU)
+    tt.iht(qphi, qphit, qy, TIMED_ITERS, K, mu, x_star=xs)
     end.record()
     end.synchronize()
     wall = time.perf_counter() - t0
-    dev_ms = start.elapsed_time(end)
-    print(f"  {TIMED_ITERS} iterations: {TIMED_ITERS / wall:.1f} iterations/s "
-          f"(host clock, {wall * 1e3 / TIMED_ITERS:.4f} ms/iteration; CUDA "
-          f"events {dev_ms / TIMED_ITERS:.4f} ms/iteration)")
-    busy = rep.ms["mvm4"] + rep.leg2_ms + rep.ms["threshold4"]
-    print(f"  kernel time per iteration {busy:.4f} ms (phase 2 medians): "
-          f"device busy ~{busy * TIMED_ITERS / (wall * 1e3):.2f} of the loop")
+    return wall * 1e3 / TIMED_ITERS, start.elapsed_time(end) / TIMED_ITERS
+
+
+def phase_main_path(rep: Report, name: str, phi, x_star, y):
+    """One configuration's solve through the public entry points; ->
+    its launch counts."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch import kernels
+    bits_a, bits_v, iters, mu, quality = config(name)
+    traced = TRACED[name]
+    print(f"== 3. main path: {name} IHT {M}x{N} K={K} mu={mu} "
+          f"iterations={iters} {'traced' if traced else 'untraced'}")
+    xs = tt.QVec32(values=x_star, length=N) if traced else None
+    kernels.reset_launch_counts()
+    gen = torch.Generator(device=phi.device).manual_seed(SEED + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qphi = tt.quantize(phi, bits_a, generator=gen)
+    qy = tt.quantize(y, bits_v, generator=gen)
+    qphit = tt.transpose(qphi)
+    # deterministic iterations: the tuned mu comes from a search with
+    # stochastic rounding off, and SR iterations diverge at that mu
+    res = tt.iht(qphi, qphit, qy, iters, K, mu, x_star=xs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    expected = expected_counts(bits_a, bits_v, iters, traced)
+    print(f"  launches {counts} in {wall * 1e3:.2f} ms")
+    if counts != expected:
+        raise AssertionError(f"launch counts {counts} != expected {expected}")
+    err = recovery_error(res.x, x_star)
+    print(f"  relative recovery error after {iters} iterations: {err:.6f} "
+          f"(table quality {quality:.4f})")
+    if not math.isfinite(err) or err >= 1.0:
+        raise AssertionError(f"recovery error {err} not below 1.0")
+    if traced:
+        last = float(res.trace[-1])
+        print(f"  trace {[round(float(t), 6) for t in res.trace]}, last "
+              f"{last:.7f} vs host-restored {err:.7f}")
+        if res.trace.shape != (iters,) or abs(last - err) > TRACE_TOL:
+            raise AssertionError(f"trace {res.trace} does not end at {err}")
+    width = N // 2 if bits_v == 4 else N
+    if res.x.codes.shape != (width,) or res.x.scales.shape != (N // 64,):
+        raise AssertionError("solution container has the wrong shape")
+
+    mode = f"{bits_a}x{bits_v}"
+    busy = (rep.leg_ms[mode, "Phi"] + rep.leg_ms[mode, "PhiT"]
+            + rep.ms[f"threshold{bits_v}"])
+    for label, x_star_arg in ((("traced", xs), ("untraced", None))
+                              if traced else (("untraced", None),)):
+        host_ms, dev_ms = timed_solve(qphi, qphit, qy, iters, mu, x_star_arg)
+        kern = busy + (rep.ms["restore_vec"] if x_star_arg is not None
+                       else 0.0)
+        print(f"  {TIMED_ITERS} {label} iterations: {1e3 / host_ms:.1f} "
+              f"iterations/s (host clock, {host_ms:.4f} ms/iteration; CUDA "
+              f"events {dev_ms:.4f} ms/iteration); kernels {kern:.4f} ms "
+              f"per iteration (phase 2 medians): device busy "
+              f"~{kern / host_ms:.2f} of the loop")
     return counts
 
 
-def plain_iht(phi, y, iterations: int):
+def plain_iht(name: str, phi, y):
     """The deterministic solve through the plain versions, on the card."""
-    import torch
-    from clover_tpu_torch import QVec4, zeros_vector
-    from clover_tpu_torch.kernels import (
-        mvm4_plain, quantize_mat_plain, quantize_vec_plain, threshold4_plain,
-        transpose4_plain)
-    pc, ps = quantize_mat_plain(phi, 4)
-    yc, ys = quantize_vec_plain(y, 4)
-    tc, ts = transpose4_plain(pc), ps.T.contiguous()
-    x = zeros_vector(4, N, device=phi.device)
+    import clover_tpu_torch as tt
+    from clover_tpu_torch import kernels as kn
+    bits_a, bits_v, iters, mu, _ = config(name)
+    pc, ps = kn.quantize_mat_plain(phi, bits_a)
+    yc, ys = kn.quantize_vec_plain(y, bits_v)
+    tc = (kn.transpose4_plain if bits_a == 4 else kn.transpose8_plain)(pc)
+    ts = ps.T.contiguous()
+    x = tt.zeros_vector(bits_v, N, device=phi.device)
     xc, xs = x.codes, x.scales
-    for _ in range(iterations):
-        t2 = mvm4_plain(pc, ps, xc, xs, yc, ys, -1.0)
-        xc, xs = mvm4_plain(tc, ts, *t2, xc, xs, MU)
-        xc = threshold4_plain(xc, xs, K)
-    return QVec4(codes=xc, scales=xs, length=N)
+    _, mvm = mvm_forms(bits_a, bits_v)
+    for _ in range(iters):
+        t2 = mvm(pc, ps, xc, xs, yc, ys, -1.0)
+        xc, xs = mvm(tc, ts, *t2, xc, xs, mu)
+        xc = (kn.threshold4_plain(xc, xs, K) if bits_v == 4
+              else kn.threshold8_plain(xc, xs, K, N))
+    return type(x)(codes=xc, scales=xs, length=N)
 
 
-def phase_solve_parity(phi, x_star, y):
+def phase_solve_parity(name: str, phi, x_star, y):
     import torch
     import clover_tpu_torch as tt
-    print(f"== 4. deterministic {ITERS}-iteration solve, kernels vs plain")
-    qphi = tt.quantize(phi, 4)
-    res = tt.iht(qphi, tt.transpose(qphi), tt.quantize(y, 4), ITERS, K, MU)
-    plain = plain_iht(phi, y, ITERS)
+    bits_a, bits_v, iters, mu, _ = config(name)
+    print(f"== 4. deterministic {name} {iters}-iteration solve, kernels vs "
+          f"plain")
+    qphi = tt.quantize(phi, bits_a)
+    res = tt.iht(qphi, tt.transpose(qphi), tt.quantize(y, bits_v), iters, K,
+                 mu)
+    plain = plain_iht(name, phi, y)
     ek, ep = recovery_error(res.x, x_star), recovery_error(plain, x_star)
     same = (torch.equal(res.x.codes, plain.codes)
             and torch.equal(res.x.scales, plain.scales))
@@ -361,10 +547,17 @@ def main() -> int:
     phi, x_star, y = make_iht_problem(M, N, K, generator=gen)
     rep = Report()
     phase_kernels(rep, phi, gen)
-    counts = phase_main_path(rep, phi, x_star, y)
-    phase_solve_parity(phi, x_star, y)
+    launches = dict.fromkeys(KERNEL_INFO, 0)
+    for name in CONFIGS:
+        for kernel, n in phase_main_path(rep, name, phi, x_star, y).items():
+            launches[kernel] += n
+    for name in CONFIGS:
+        phase_solve_parity(name, phi, x_star, y)
+    for kernel, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{kernel} never launched on a main path")
     kernels = [{"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": counts[name],
+                "replaces": replaces, "launches": launches[name],
                 "max_abs_err": rep.err[name], "ms": rep.ms[name],
                 "plain_ms": rep.plain_ms[name]}
                for name, (src, replaces) in KERNEL_INFO.items()]

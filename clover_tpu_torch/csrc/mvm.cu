@@ -1,32 +1,42 @@
-// Fused requantizing 4-bit MVM, with an optional scaleAndAdd epilogue.
+// Fused requantizing MVM, with an optional scaleAndAdd epilogue, for a 4- or
+// 8-bit matrix A times a 4- or 8-bit vector x: modes 4x4 (4-bit output),
+// 4x8 and 8x8 (8-bit output).
 //
-// Replaces clover_tpu/kernels/mvm.py mvm_pallas and mvm_axpy_pallas in 4x4
-// mode (bodies _kernel_4x4 and _kernel_4x4_i4, epilogues _requant_write and
-// _requant_axpy_write):
+// Replaces clover_tpu/kernels/mvm.py mvm_pallas and mvm_axpy_pallas (bodies
+// _kernel_4x4, _kernel_4x4_i4, _kernel_4x8 and _kernel_8x8, epilogues
+// _requant_write and _requant_axpy_write):
 //
 //   y   = A x                       exact int32 dot per (row, 64-block),
-//                                   times (sA/7)*(sx/7) in f32, summed
-//   q1  = band-requant(y)           absmax, SR, per 64-row band
-//   out = q1                                        (mvm)
-//   out = band-requant(u*(us/7) + alpha*(q1*(s1/7)))  (mvm_axpy)
+//                                   times (sA/qA)*(sx/qx) in f32, summed
+//   q1  = band-requant(y)           absmax, SR, per 64-row band, qmax qO
+//   out = q1                                          (mvm)
+//   out = band-requant(u*(us/qO) + alpha*(q1*(s1/qO)))  (mvm_axpy)
 //
-// The intermediate q1 is always formed, never skipped.
+// with qA, qx, qO = 7 for 4 bits and 127 for 8 bits.  The intermediate q1 is
+// always formed, never skipped.  The scale combine is (sA/qA)*(sx/qx), the
+// order of the XLA path (clover_tpu/ops/mvm.py); the TPU kernels'
+// sA*sx*(1/(qA*qx)) rounds differently, within the 1-LSB contract.
 //
-// Bound: device memory.  Each packed matrix byte is read once (two codes, two
-// int8 multiply-adds).  Design: one CTA per 64-row band, 8 warps x 8 rows.  A
-// lane pair owns one 32-byte block of a row per 512-byte chunk, each lane 16
-// bytes (one uint4); the nibbles of A and of x unpack with byte-SIMD ops into
-// signed int8x4 words for __dp4a, and one shuffle joins the two halves into
-// the block's exact dot.  A warp walks its 8 rows together, so every chunk
-// keeps 8 independent 16-byte loads in flight per lane and unpacks x once.
-// Hopper has no int4 tensor-core path and a GEMV has nothing to reuse, so no
-// tensor core is used.  Known limit: m_pad/64 CTAs, 128 on the 8192-row leg,
-// fewer than the 132 SMs.
+// Bound: device memory.  Each matrix byte is read once (two int8
+// multiply-adds for a packed 4-bit byte, one for an 8-bit byte).  Design: one
+// CTA per 64-row band, 8 warps x 8 rows.  Per 512-byte chunk of a row, a
+// group of lanes owns one 64-element block, each lane 16 bytes (one uint4):
+// a lane pair for a 32-byte packed 4-bit block, a lane quad for a 64-byte
+// 8-bit block.  Packed nibbles unpack with byte-SIMD ops into signed int8x4
+// words; __dp4a takes them (and 8-bit bytes as they are) against x's int8x4
+// words, and shuffles within the group join the block's exact dot.  4x8: the
+// low nibbles of a block's byte j dot x[64b + j], the high nibbles
+// x[64b + 32 + j], so a lane of the pair reads both 16-byte runs of x.  A warp
+// walks its 8 rows together, so every chunk keeps 8 independent 16-byte loads
+// in flight per lane and reads x once.  Hopper has no int4 tensor-core path
+// and a GEMV has nothing to reuse, so no tensor core is used.  Known limit:
+// m_pad/64 CTAs, 128 on the 8192-row leg, fewer than the 132 SMs.
 //
 // Summation order, mirrored op for op by the plain version
-// (clover_tpu_torch/kernels/mvm.py _blocked_sum): lane pair p adds the
-// products of blocks p, p + 16, p + 32, ... in that order, starting from
-// 0; then the 16 pair sums reduce as (p, p^8), (p, p^4), (p, p^2), (p, p^1).
+// (clover_tpu_torch/kernels/mvm.py blocked_sum): with G = 16 groups per warp
+// (4-bit A) or 8 (8-bit A), group g adds the products of blocks g, g + G,
+// g + 2G, ... in that order, starting from 0; then the G group sums reduce
+// as (g, g ^ G/2), (g, g ^ G/4), ..., (g, g ^ 1).
 #include "common.cuh"
 
 namespace clover {
@@ -41,18 +51,26 @@ __device__ __forceinline__ void unpack_word(uint32_t w, int& lo, int& hi) {
   hi = (int)__vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
 }
 
+template <int BA, int BX>
 __global__ void __launch_bounds__(256)
-mvm4_kernel(const int8_t* __restrict__ a, const float* __restrict__ a_scales,
-            const int8_t* __restrict__ x, const float* __restrict__ x_scales,
-            const int8_t* __restrict__ u, const float* __restrict__ u_scales,
-            float alpha, int8_t* __restrict__ out,
-            float* __restrict__ out_scales, int64_t n_pad, int noise1,
-            uint32_t seed1, int noise2, uint32_t seed2) {
+mvm_kernel(const int8_t* __restrict__ a, const float* __restrict__ a_scales,
+           const int8_t* __restrict__ x, const float* __restrict__ x_scales,
+           const int8_t* __restrict__ u, const float* __restrict__ u_scales,
+           float alpha, int8_t* __restrict__ out,
+           float* __restrict__ out_scales, int64_t n_pad, int noise1,
+           uint32_t seed1, int noise2, uint32_t seed2) {
+  constexpr int BO = (BA == 4 && BX == 4) ? 4 : 8;  // output bits
+  constexpr float QA = BA == 4 ? 7.0f : 127.0f;
+  constexpr float QX = BX == 4 ? 7.0f : 127.0f;
+  constexpr float QO = BO == 4 ? 7.0f : 127.0f;
+  constexpr int LANES = BA == 4 ? 2 : 4;  // lanes sharing one block of A
+  constexpr int GROUPS = 32 / LANES;      // blocks per warp per chunk
+  constexpr int A_BLOCK = 8 * BA;         // bytes of one 64-element block
   __shared__ float ys[64];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t band = blockIdx.x;
-  const int64_t wa = n_pad / 2, nb = n_pad / 64;
-  const int half = lane & 1, pair = lane >> 1;
+  const int64_t wa = n_pad * BA / 8, nb = n_pad / 64;
+  const int part = lane & (LANES - 1), group = lane / LANES;
   const int8_t* rows = a + (band * 64 + warp * MV_ROWS) * wa;
   const float* band_scales = a_scales + band * nb;
 
@@ -61,20 +79,33 @@ mvm4_kernel(const int8_t* __restrict__ a, const float* __restrict__ a_scales,
   for (int r = 0; r < MV_ROWS; ++r) acc[r] = 0.0f;
 
   for (int64_t c = 0; c * MV_CHUNK < wa; ++c) {
-    const int64_t b = c * 16 + pair;
+    const int64_t b = c * GROUPS + group;
     const bool valid = b < nb;
-    const int64_t off = b * 32 + half * 16;
-    uint4 xw = make_uint4(0u, 0u, 0u, 0u);
+    const int64_t off = b * A_BLOCK + part * 16;  // this lane's bytes of A
+    // this lane's bytes of x: packed like A's (4x4), or 8-bit elements
+    // 64b + 16 part ... (the low nibbles' partners when A is 4-bit) and,
+    // for 4x8, the high nibbles' partners 32 bytes on
+    const int64_t xo = BX == 4 ? off : b * 64 + part * 16;
+    uint4 xa = make_uint4(0u, 0u, 0u, 0u), xb = xa;
     float comb = 0.0f;
     if (valid) {
-      xw = *reinterpret_cast<const uint4*>(x + off);
-      comb = (band_scales[b] / 7.0f) * (x_scales[b] / 7.0f);
+      xa = *reinterpret_cast<const uint4*>(x + xo);
+      if constexpr (BA == 4 && BX == 8)
+        xb = *reinterpret_cast<const uint4*>(x + xo + 32);
+      comb = (band_scales[b] / QA) * (x_scales[b] / QX);
     }
+    // x as int8x4 words: xl[i] meets A's word i (its low codes when A is
+    // 4-bit), xh[i] the high codes of A's word i
     int xl[4], xh[4];
-    unpack_word(xw.x, xl[0], xh[0]);
-    unpack_word(xw.y, xl[1], xh[1]);
-    unpack_word(xw.z, xl[2], xh[2]);
-    unpack_word(xw.w, xl[3], xh[3]);
+    if constexpr (BX == 4) {
+      unpack_word(xa.x, xl[0], xh[0]);
+      unpack_word(xa.y, xl[1], xh[1]);
+      unpack_word(xa.z, xl[2], xh[2]);
+      unpack_word(xa.w, xl[3], xh[3]);
+    } else {
+      xl[0] = (int)xa.x; xl[1] = (int)xa.y; xl[2] = (int)xa.z; xl[3] = (int)xa.w;
+      xh[0] = (int)xb.x; xh[1] = (int)xb.y; xh[2] = (int)xb.z; xh[3] = (int)xb.w;
+    }
     uint4 aw[MV_ROWS];
 #pragma unroll
     for (int r = 0; r < MV_ROWS; ++r)
@@ -82,73 +113,109 @@ mvm4_kernel(const int8_t* __restrict__ a, const float* __restrict__ a_scales,
                     : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
     for (int r = 0; r < MV_ROWS; ++r) {
-      int al, ah, d = 0;
-      unpack_word(aw[r].x, al, ah);
-      d = __dp4a(al, xl[0], d);
-      d = __dp4a(ah, xh[0], d);
-      unpack_word(aw[r].y, al, ah);
-      d = __dp4a(al, xl[1], d);
-      d = __dp4a(ah, xh[1], d);
-      unpack_word(aw[r].z, al, ah);
-      d = __dp4a(al, xl[2], d);
-      d = __dp4a(ah, xh[2], d);
-      unpack_word(aw[r].w, al, ah);
-      d = __dp4a(al, xl[3], d);
-      d = __dp4a(ah, xh[3], d);
-      d += __shfl_xor_sync(FULL_MASK, d, 1);  // the block's exact dot
-      acc[r] = acc[r] + comb * (float)d;      // both lanes of the pair alike
+      int d = 0;
+      if constexpr (BA == 4) {
+        int al, ah;
+        unpack_word(aw[r].x, al, ah);
+        d = __dp4a(al, xl[0], d);
+        d = __dp4a(ah, xh[0], d);
+        unpack_word(aw[r].y, al, ah);
+        d = __dp4a(al, xl[1], d);
+        d = __dp4a(ah, xh[1], d);
+        unpack_word(aw[r].z, al, ah);
+        d = __dp4a(al, xl[2], d);
+        d = __dp4a(ah, xh[2], d);
+        unpack_word(aw[r].w, al, ah);
+        d = __dp4a(al, xl[3], d);
+        d = __dp4a(ah, xh[3], d);
+      } else {
+        d = __dp4a((int)aw[r].x, xl[0], d);
+        d = __dp4a((int)aw[r].y, xl[1], d);
+        d = __dp4a((int)aw[r].z, xl[2], d);
+        d = __dp4a((int)aw[r].w, xl[3], d);
+      }
+#pragma unroll
+      for (int o = 1; o < LANES; o <<= 1)
+        d += __shfl_xor_sync(FULL_MASK, d, o);  // the block's exact dot
+      acc[r] = acc[r] + comb * (float)d;       // every lane of the group alike
     }
   }
 
 #pragma unroll
   for (int r = 0; r < MV_ROWS; ++r) {
     float v = acc[r];
-    v = v + __shfl_xor_sync(FULL_MASK, v, 16);
-    v = v + __shfl_xor_sync(FULL_MASK, v, 8);
-    v = v + __shfl_xor_sync(FULL_MASK, v, 4);
-    v = v + __shfl_xor_sync(FULL_MASK, v, 2);
+#pragma unroll
+    for (int o = 16; o >= LANES; o >>= 1)
+      v = v + __shfl_xor_sync(FULL_MASK, v, o);
     if (lane == 0) ys[warp * MV_ROWS + r] = v;
   }
   __syncthreads();
   if (warp != 0) return;
 
-  // band requant: lane j holds band rows j and j + 32, the two nibbles of
-  // output byte j
+  // band requant: lane j holds band rows j and j + 32 (the two nibbles of
+  // output byte j when the output is 4-bit)
   const int64_t i0 = band * 64 + lane, i1 = i0 + 32;
   const float y0 = ys[lane], y1 = ys[lane + 32];
   const float s1 = nonzero_scale(warp_max(fmaxf(fabsf(y0), fabsf(y1))));
-  const float mult1 = 7.0f / s1;
-  int q0 = sr_code(y0, mult1, 7.0f, sr_noise(noise1, seed1, i0, 0));
-  int q1 = sr_code(y1, mult1, 7.0f, sr_noise(noise1, seed1, i1, 0));
+  const float mult1 = QO / s1;
+  int q0 = sr_code(y0, mult1, QO, sr_noise(noise1, seed1, i0, 0));
+  int q1 = sr_code(y1, mult1, QO, sr_noise(noise1, seed1, i1, 0));
   float s_out = s1;
   if (u != nullptr) {
     // scaleAndAdd in the op order of clover_tpu/ops/axpy.py:
     // restore(u) + alpha * restore(q1), then a second band requant
-    const int p = u[band * 32 + lane];
-    const float um = u_scales[band] / 7.0f;
-    const float tm = s1 / 7.0f;
-    const float x0 = (float)low_code(p) * um + alpha * ((float)q0 * tm);
-    const float x1 = (float)high_code(p) * um + alpha * ((float)q1 * tm);
+    int u0, u1;
+    if constexpr (BO == 4) {
+      const int p = u[band * 32 + lane];
+      u0 = low_code(p);
+      u1 = high_code(p);
+    } else {
+      u0 = u[i0];
+      u1 = u[i1];
+    }
+    const float um = u_scales[band] / QO;
+    const float tm = s1 / QO;
+    const float x0 = (float)u0 * um + alpha * ((float)q0 * tm);
+    const float x1 = (float)u1 * um + alpha * ((float)q1 * tm);
     const float s2 = nonzero_scale(warp_max(fmaxf(fabsf(x0), fabsf(x1))));
-    const float mult2 = 7.0f / s2;
-    q0 = sr_code(x0, mult2, 7.0f, sr_noise(noise2, seed2, i0, 1));
-    q1 = sr_code(x1, mult2, 7.0f, sr_noise(noise2, seed2, i1, 1));
+    const float mult2 = QO / s2;
+    q0 = sr_code(x0, mult2, QO, sr_noise(noise2, seed2, i0, 1));
+    q1 = sr_code(x1, mult2, QO, sr_noise(noise2, seed2, i1, 1));
     s_out = s2;
   }
-  out[band * 32 + lane] = pack_byte(q0, q1);
+  if constexpr (BO == 4) {
+    out[band * 32 + lane] = pack_byte(q0, q1);
+  } else {
+    out[i0] = (int8_t)q0;
+    out[i1] = (int8_t)q1;
+  }
   if (lane == 0) out_scales[band] = s_out;
 }
 
 }  // namespace clover
 
-extern "C" int clover_mvm4(const int8_t* a, const float* a_scales,
-                           const int8_t* x, const float* x_scales,
-                           const int8_t* u, const float* u_scales, float alpha,
-                           int8_t* out, float* out_scales, int64_t m_pad,
-                           int64_t n_pad, int noise1, uint32_t seed1,
-                           int noise2, uint32_t seed2, void* stream) {
-  clover::mvm4_kernel<<<(unsigned)(m_pad / 64), 256, 0, (cudaStream_t)stream>>>(
-      a, a_scales, x, x_scales, u, u_scales, alpha, out, out_scales, n_pad,
-      noise1, seed1, noise2, seed2);
+extern "C" int clover_mvm(const int8_t* a, const float* a_scales,
+                          const int8_t* x, const float* x_scales,
+                          const int8_t* u, const float* u_scales, float alpha,
+                          int8_t* out, float* out_scales, int64_t m_pad,
+                          int64_t n_pad, int bits_a, int bits_x, int noise1,
+                          uint32_t seed1, int noise2, uint32_t seed2,
+                          void* stream) {
+  const unsigned grid = (unsigned)(m_pad / 64);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bits_a == 4 && bits_x == 4)
+    clover::mvm_kernel<4, 4><<<grid, 256, 0, s>>>(
+        a, a_scales, x, x_scales, u, u_scales, alpha, out, out_scales, n_pad,
+        noise1, seed1, noise2, seed2);
+  else if (bits_a == 4 && bits_x == 8)
+    clover::mvm_kernel<4, 8><<<grid, 256, 0, s>>>(
+        a, a_scales, x, x_scales, u, u_scales, alpha, out, out_scales, n_pad,
+        noise1, seed1, noise2, seed2);
+  else if (bits_a == 8 && bits_x == 8)
+    clover::mvm_kernel<8, 8><<<grid, 256, 0, s>>>(
+        a, a_scales, x, x_scales, u, u_scales, alpha, out, out_scales, n_pad,
+        noise1, seed1, noise2, seed2);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -9,13 +9,18 @@ import time.
 """
 
 from .dispatch import SEED_GOLD, SEED_OP, on_cuda, seed_from, wrap_i32
-from .mvm import axpy_plain, mvm4_cuda, mvm4_plain
+from .mvm import axpy_plain, mvm4_cuda, mvm4_plain, mvm8_cuda, mvm8_plain
 from .quantize import (
     quantize_mat_cuda, quantize_mat_plain, quantize_vec_cuda,
     quantize_vec_plain,
 )
-from .threshold import threshold4_cuda, threshold4_plain
-from .transpose import transpose4_cuda, transpose4_plain
+from .restore import restore_vec_cuda, restore_vec_plain
+from .threshold import (
+    threshold4_cuda, threshold4_plain, threshold8_cuda, threshold8_plain,
+)
+from .transpose import (
+    transpose4_cuda, transpose4_plain, transpose8_cuda, transpose8_plain,
+)
 
 # kernel name -> launch wrapper
 KERNELS = {
@@ -24,6 +29,10 @@ KERNELS = {
     "transpose4": transpose4_cuda,
     "mvm4": mvm4_cuda,
     "threshold4": threshold4_cuda,
+    "restore_vec": restore_vec_cuda,
+    "transpose8": transpose8_cuda,
+    "mvm8": mvm8_cuda,
+    "threshold8": threshold8_cuda,
 }
 
 
@@ -41,7 +50,10 @@ __all__ = [
     "KERNELS", "launch_counts", "reset_launch_counts",
     "quantize_vec_cuda", "quantize_vec_plain",
     "quantize_mat_cuda", "quantize_mat_plain",
+    "restore_vec_cuda", "restore_vec_plain",
     "transpose4_cuda", "transpose4_plain",
-    "mvm4_cuda", "mvm4_plain", "axpy_plain",
+    "transpose8_cuda", "transpose8_plain",
+    "mvm4_cuda", "mvm4_plain", "mvm8_cuda", "mvm8_plain", "axpy_plain",
     "threshold4_cuda", "threshold4_plain",
+    "threshold8_cuda", "threshold8_plain",
 ]

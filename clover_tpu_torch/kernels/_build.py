@@ -34,10 +34,11 @@ _U32, _F32 = ctypes.c_uint32, ctypes.c_float
 SIGNATURES = {
     "clover_quantize_vec": (_P, _P, _P, _I64, _I32, _I32, _U32, _P),
     "clover_quantize_mat": (_P, _P, _P, _I64, _I64, _I32, _I32, _U32, _P),
-    "clover_transpose4": (_P, _P, _I64, _I64, _P),
-    "clover_mvm4": (_P, _P, _P, _P, _P, _P, _F32, _P, _P, _I64, _I64,
-                    _I32, _U32, _I32, _U32, _P),
-    "clover_threshold4": (_P, _P, _P, _I64, _I64, _P),
+    "clover_restore_vec": (_P, _P, _P, _I64, _I32, _P),
+    "clover_transpose": (_P, _P, _I64, _I64, _I32, _P),
+    "clover_mvm": (_P, _P, _P, _P, _P, _P, _F32, _P, _P, _I64, _I64,
+                   _I32, _I32, _I32, _U32, _I32, _U32, _P),
+    "clover_threshold": (_P, _P, _P, _I64, _I64, _I32, _P),
 }
 
 

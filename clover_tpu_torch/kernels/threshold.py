@@ -1,9 +1,11 @@
-"""Exact 4-bit threshold kernel (csrc/threshold.cu) and its plain version.
+"""Exact threshold kernel (csrc/threshold.cu) and its plain versions.
 
-Replaces clover_tpu/kernels/threshold.py threshold4_pallas.  Both forms
-keep the k largest |code * (s/7)| of a packed 4-bit vector in golden order
-(|value| descending, index ascending), zero the other codes, and return the
-new packed codes; scales are the caller's, untouched.
+Replaces clover_tpu/kernels/threshold.py threshold4_pallas and
+threshold8_pallas.  Every form keeps the k largest |code * (s/qmax)| of a
+4-bit (packed) or 8-bit vector in golden order (|value| descending, index
+ascending), zeros the other codes, and returns the new codes; scales are
+the caller's, untouched.  The kernel needs no length: padding codes are
+zero, so keeping or dropping a padding tie writes the same byte.
 """
 
 from __future__ import annotations
@@ -16,15 +18,15 @@ from . import _build
 
 
 def golden_keep(values: torch.Tensor, k: int,
-                valid: torch.Tensor | None = None) -> torch.Tensor:
+                length: int | None = None) -> torch.Tensor:
     """Bool mask of the first k of ``values`` (f32 >= 0) in golden order;
-    entries where ``valid`` is False rank after every valid one."""
+    entries at or past ``length`` rank after every other one."""
     n = values.shape[0]
     bits = values.view(torch.int32).to(torch.int64)
     idx = torch.arange(n, device=values.device)
     key = (bits << 32) | (n - 1 - idx)            # unique, order-preserving
-    if valid is not None:
-        key = torch.where(valid, key, torch.full_like(key, -1))
+    if length is not None and length < n:
+        key = torch.where(idx < length, key, torch.full_like(key, -1))
     keep = torch.zeros(n, dtype=torch.bool, device=values.device)
     keep[torch.topk(key, k).indices] = True
     return keep
@@ -38,21 +40,43 @@ def threshold4_plain(codes: torch.Tensor, scales: torch.Tensor,
     return pack_nibbles(torch.where(keep, c, torch.zeros_like(c)))
 
 
-def threshold4_cuda(codes: torch.Tensor, scales: torch.Tensor,
-                    k: int) -> torch.Tensor:
+def threshold8_plain(codes: torch.Tensor, scales: torch.Tensor, k: int,
+                     length: int) -> torch.Tensor:
+    av = codes.to(torch.float32).abs() * _core.expand_vec_scales(scales, 8)
+    keep = golden_keep(av, k, length)
+    return torch.where(keep, codes, torch.zeros_like(codes))
+
+
+def _launch(codes: torch.Tensor, scales: torch.Tensor, k: int,
+            bits: int) -> torch.Tensor:
     (wb,) = codes.shape
-    n_pad = 2 * wb
+    n_pad = wb * 8 // bits
     if n_pad % 128:
         raise ValueError(f"codes {tuple(codes.shape)} not padded to 128")
     if not 0 <= k < 2 ** 31:
         raise ValueError(f"k={k} out of range")
     _build.check(codes, (wb,), torch.int8, "codes")
-    _build.check(scales, (n_pad // BLOCK,), torch.float32, "scales", codes.device)
+    _build.check(scales, (n_pad // BLOCK,), torch.float32, "scales",
+                 codes.device)
     out = torch.empty_like(codes)
-    _build.launch("clover_threshold4", codes.device, _build.ptr(codes),
-                  _build.ptr(scales), _build.ptr(out), n_pad, int(k))
+    _build.launch("clover_threshold", codes.device, _build.ptr(codes),
+                  _build.ptr(scales), _build.ptr(out), n_pad, int(k), bits)
+    return out
+
+
+def threshold4_cuda(codes: torch.Tensor, scales: torch.Tensor,
+                    k: int) -> torch.Tensor:
+    out = _launch(codes, scales, k, 4)
     threshold4_cuda.launches += 1
     return out
 
 
+def threshold8_cuda(codes: torch.Tensor, scales: torch.Tensor,
+                    k: int) -> torch.Tensor:
+    out = _launch(codes, scales, k, 8)
+    threshold8_cuda.launches += 1
+    return out
+
+
 threshold4_cuda.launches = 0
+threshold8_cuda.launches = 0

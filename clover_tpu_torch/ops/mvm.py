@@ -3,18 +3,22 @@
 
 y = A @ x with exact int32 block dots, a per-tile f32 scale combine
 ``(sA/qA) * (sx/qx)``, and per 64-row band an absmax requant with
-stochastic rounding.  4-bit x 4-bit runs the fused MVM kernel on CUDA and
-its plain version on the CPU.  The other int combinations (4x8, 8x8) are
-plain and CPU only until their kernels are ported; fp paths dequantize.
+stochastic rounding.  The int combinations 4x4, 4x8 and 8x8 run the fused
+MVM kernel on CUDA and its plain version on the CPU; fp paths dequantize
+and stay torch (clover_tpu computes them in XLA).
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
 from ..formats import QMat4, QMat8, QMat16, QMat32, QVec4, QVec8, QVec16, QVec32
 from ..kernels.dispatch import on_cuda, seed_from
-from ..kernels.mvm import blocked_products, mvm4_cuda, mvm4_plain
+from ..kernels.mvm import (
+    blocked_products, mvm4_cuda, mvm4_plain, mvm8_cuda, mvm8_plain,
+)
 from .axpy import scale_and_add
 from .quantize import quantize_vec, restore_mat, restore_vec
 
@@ -36,14 +40,14 @@ def mvm_f32(A, x) -> torch.Tensor:
     return af @ xf
 
 
-def _is_4x4(A, x) -> bool:
-    return isinstance(A, QMat4) and isinstance(x, QVec4)
-
-
-def _pending(A, x):
-    return NotImplementedError(
-        f"{type(A).__name__} x {type(x).__name__} MVM kernel is not ported "
-        f"yet (ROADMAP.md queue 2)")
+def _fused(A, x):
+    """(kernel form, plain version, output type) of an int MVM, or None
+    for another combination."""
+    if isinstance(A, QMat4) and isinstance(x, QVec4):
+        return mvm4_cuda, mvm4_plain, QVec4
+    if isinstance(A, _INT_MATS) and isinstance(x, QVec8):
+        return partial(mvm8_cuda, A.bits), partial(mvm8_plain, A.bits), QVec8
+    return None
 
 
 def mvm(A, x, generator=None):
@@ -52,29 +56,31 @@ def mvm(A, x, generator=None):
     Output precision follows the reference dispatch table:
     (4,4)->4, (8,8)->8, (4,8)->8, (16,16)->16, (*,32)->32, (32,32)->32.
     """
-    if _is_4x4(A, x):
+    fused = _fused(A, x)
+    if fused is not None:
+        cuda, plain, out = fused
+        fn = cuda if on_cuda(A.codes, x.codes) else plain
         seed, noise = seed_from(generator)
-        fn = mvm4_cuda if on_cuda(A.codes, x.codes) else mvm4_plain
         codes, scales = fn(A.codes, A.scales, x.codes, x.scales,
                            seed1=seed, noise1=noise)
-        return QVec4(codes=codes, scales=scales, length=A.rows)
-    if isinstance(A, _INT_MATS) and isinstance(x, _INT_VECS) and on_cuda(A.codes):
-        raise _pending(A, x)
+        return out(codes=codes, scales=scales, length=A.rows)
     return _requant_output(mvm_f32(A, x), A.rows, _out_bits(A, x), generator)
 
 
 def mvm_axpy(A, x, u, alpha, generator_mvm=None, generator_axpy=None):
     """r = scale_and_add(u, mvm(A, x), alpha), the AXPY fused behind the
-    MVM's band requant in one kernel launch for 4x4 (the intermediate
-    quantized MVM result is formed but never written out).  The plain
-    version is the unfused sequence, bit for bit."""
-    if _is_4x4(A, x) and isinstance(u, QVec4):
+    MVM's band requant in one kernel launch for the int combinations (the
+    intermediate quantized MVM result is formed but never written out).
+    The plain version is the unfused sequence, bit for bit."""
+    fused = _fused(A, x)
+    if fused is not None and isinstance(u, fused[2]):
+        cuda, plain, out = fused
+        fn = cuda if on_cuda(A.codes, x.codes, u.codes) else plain
         s1, n1 = seed_from(generator_mvm)
         s2, n2 = seed_from(generator_axpy)
-        fn = mvm4_cuda if on_cuda(A.codes, x.codes, u.codes) else mvm4_plain
         codes, scales = fn(A.codes, A.scales, x.codes, x.scales, u.codes,
                            u.scales, alpha, s1, n1, s2, n2)
-        return QVec4(codes=codes, scales=scales, length=A.rows)
+        return out(codes=codes, scales=scales, length=A.rows)
     return scale_and_add(u, mvm(A, x, generator_mvm), alpha, generator_axpy)
 
 

@@ -3,9 +3,10 @@ clover_tpu/ops/quantize.py).
 
 ``generator`` drives stochastic rounding: None is deterministic
 truncation, a ``torch.Generator`` (or an int seed) gives Philox noise.
-4- and 8-bit quantize run the quantize kernel on CUDA tensors and its plain
-version on CPU tensors.  4- and 8-bit restore are plain and CPU only for
-now: on CUDA they raise until the restore kernel is ported.
+4- and 8-bit quantize and vector restore run their kernels on CUDA tensors
+and the kernels' plain versions on CPU tensors.  4- and 8-bit matrix
+restore is plain and CPU only: on CUDA it raises until its kernel is
+ported.
 """
 
 from __future__ import annotations
@@ -21,11 +22,13 @@ from ..kernels.quantize import (
     quantize_mat_cuda, quantize_mat_plain, quantize_vec_cuda,
     quantize_vec_plain,
 )
+from ..kernels.restore import restore_vec_cuda, restore_vec_plain
 from . import _core
 
-RESTORE_PENDING = ("the 4/8-bit restore kernel is not ported yet (next in "
-                   "ROADMAP.md queue 2: clover_tpu/kernels/restore.py); "
-                   "restore a CPU copy (formats.to_device(q, 'cpu'))")
+RESTORE_MAT_PENDING = (
+    "the 4/8-bit matrix restore kernel is not ported yet (ROADMAP.md queue "
+    "2: clover_tpu/kernels/restore.py restore_mat_pallas); restore a CPU "
+    "copy (formats.to_device(q, 'cpu'))")
 
 
 def _as_padded_vec(x) -> tuple[torch.Tensor, int]:
@@ -76,11 +79,8 @@ def restore_vec(q) -> QVec32:
         return q
     if isinstance(q, QVec16):
         return QVec32(values=q.values.to(torch.float32), length=q.length)
-    if on_cuda(q.codes):
-        raise NotImplementedError(RESTORE_PENDING)
-    codes = unpack_nibbles(q.codes) if isinstance(q, QVec4) else q.codes
-    mult = _core.expand_vec_scales(q.scales, q.bits)
-    return QVec32(values=codes.to(torch.float32) * mult, length=q.length)
+    fn = restore_vec_cuda if on_cuda(q.codes) else restore_vec_plain
+    return QVec32(values=fn(q.codes, q.scales, q.bits), length=q.length)
 
 
 def restore_mat(q) -> QMat32:
@@ -90,7 +90,7 @@ def restore_mat(q) -> QMat32:
         return QMat32(values=q.values.to(torch.float32), rows=q.rows,
                       cols=q.cols)
     if on_cuda(q.codes):
-        raise NotImplementedError(RESTORE_PENDING)
+        raise NotImplementedError(RESTORE_MAT_PENDING)
     codes = unpack_nibbles(q.codes) if isinstance(q, QMat4) else q.codes
     mult = _core.expand_tile_scales(q.scales, q.bits)
     return QMat32(values=codes.to(torch.float32) * mult, rows=q.rows,

@@ -2,9 +2,10 @@
 (counterpart of clover_tpu/ops/threshold.py).
 
 Selection is exact, in golden order: |value| descending, then index
-ascending.  Scales are never touched.  4-bit runs the threshold kernel on
-CUDA and its plain version on the CPU; one kernel serves every length.
-8/16/32-bit are plain and CPU only until their kernels are ported.
+ascending.  Scales are never touched.  4- and 8-bit run the threshold
+kernel on CUDA and its plain version on the CPU; one kernel serves every
+length.  16/32-bit are plain and CPU only for now (clover_tpu computes
+them in XLA, with no Pallas kernel).
 """
 
 from __future__ import annotations
@@ -13,8 +14,10 @@ import torch
 
 from ..formats import QVec4, QVec8, QVec16, QVec32
 from ..kernels.dispatch import on_cuda
-from ..kernels.threshold import golden_keep, threshold4_cuda, threshold4_plain
-from .quantize import restore_vec
+from ..kernels.threshold import (
+    golden_keep, threshold4_cuda, threshold4_plain, threshold8_cuda,
+    threshold8_plain,
+)
 
 
 def threshold(x, k: int):
@@ -29,16 +32,17 @@ def threshold(x, k: int):
         fn = threshold4_cuda if on_cuda(x.codes) else threshold4_plain
         return QVec4(codes=fn(x.codes, x.scales, k), scales=x.scales,
                      length=x.length)
-    t = x.codes if isinstance(x, QVec8) else x.values
-    if on_cuda(t):
-        raise NotImplementedError(f"the {type(x).__name__} threshold kernel "
-                                  f"is not ported yet (ROADMAP.md queue 2)")
-    av = restore_vec(x).values.abs()
-    valid = torch.arange(av.shape[0]) < x.length
-    keep = golden_keep(av, k, valid)
     if isinstance(x, QVec8):
-        return QVec8(codes=torch.where(keep, x.codes, torch.zeros_like(x.codes)),
-                     scales=x.scales, length=x.length)
+        if on_cuda(x.codes):
+            codes = threshold8_cuda(x.codes, x.scales, k)
+        else:
+            codes = threshold8_plain(x.codes, x.scales, k, x.length)
+        return QVec8(codes=codes, scales=x.scales, length=x.length)
+    v = x.values
+    if on_cuda(v):
+        raise NotImplementedError(f"the {type(x).__name__} threshold is "
+                                  f"not ported yet (ROADMAP.md queue 1)")
+    keep = golden_keep(v.to(torch.float32).abs(), k, x.length)
     cls = QVec16 if isinstance(x, QVec16) else QVec32
-    return cls(values=torch.where(keep, x.values, torch.zeros_like(x.values)),
+    return cls(values=torch.where(keep, v, torch.zeros_like(v)),
                length=x.length)

@@ -1,29 +1,28 @@
 """Quantized matrix transpose (counterpart of clover_tpu/ops/transpose.py).
 
 Tile scales are per 64x64 block, so transposing the values and the scale
-grid commute exactly: ``T(A)[i, j] == A[j, i]`` bit for bit.  4-bit runs
-the transpose kernel on CUDA and its plain version on the CPU; 8-bit is
-plain (CPU only until its kernel is ported); 16/32-bit are a plain ``.T``.
+grid commute exactly: ``T(A)[i, j] == A[j, i]`` bit for bit.  4- and 8-bit
+run the transpose kernel on CUDA and its plain version on the CPU; 16/32-bit
+are a plain ``.T``.
 """
 
 from __future__ import annotations
 
 from ..formats import QMat4, QMat8, QMat16, QMat32
 from ..kernels.dispatch import on_cuda
-from ..kernels.transpose import transpose4_cuda, transpose4_plain
+from ..kernels.transpose import (
+    transpose4_cuda, transpose4_plain, transpose8_cuda, transpose8_plain,
+)
 
 
 def transpose(A):
-    if isinstance(A, QMat4):
-        fn = transpose4_cuda if on_cuda(A.codes) else transpose4_plain
-        return QMat4(codes=fn(A.codes), scales=A.scales.T.contiguous(),
-                     rows=A.cols, cols=A.rows)
-    if isinstance(A, QMat8):
-        if on_cuda(A.codes):
-            raise NotImplementedError("the 8-bit transpose kernel is not "
-                                      "ported yet (ROADMAP.md queue 2)")
-        return QMat8(codes=A.codes.T.contiguous(),
-                     scales=A.scales.T.contiguous(), rows=A.cols, cols=A.rows)
+    if isinstance(A, (QMat4, QMat8)):
+        if isinstance(A, QMat4):
+            fn = transpose4_cuda if on_cuda(A.codes) else transpose4_plain
+        else:
+            fn = transpose8_cuda if on_cuda(A.codes) else transpose8_plain
+        return type(A)(codes=fn(A.codes), scales=A.scales.T.contiguous(),
+                       rows=A.cols, cols=A.rows)
     if isinstance(A, QMat16):
         return QMat16(values=A.values.T.contiguous(), rows=A.cols, cols=A.rows)
     if isinstance(A, QMat32):

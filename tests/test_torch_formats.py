@@ -136,15 +136,24 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """A kernel wrapper never computes on the CPU: it checks its operands
     before it builds or launches anything."""
     from clover_tpu_torch.kernels import (
-        mvm4_cuda, quantize_mat_cuda, quantize_vec_cuda, threshold4_cuda,
-        transpose4_cuda)
+        mvm4_cuda, mvm8_cuda, quantize_mat_cuda, quantize_vec_cuda,
+        restore_vec_cuda, threshold4_cuda, threshold8_cuda, transpose4_cuda,
+        transpose8_cuda)
     q = tt.quantize(torch.ones(128, 256), 4)
     x = tt.quantize(torch.ones(256), 4)
+    q8 = tt.quantize(torch.ones(128, 256), 8)
+    x8 = tt.quantize(torch.ones(256), 8)
     calls = [lambda: quantize_vec_cuda(torch.zeros(128), 4),
              lambda: quantize_mat_cuda(torch.zeros(128, 128), 4),
              lambda: transpose4_cuda(q.codes),
+             lambda: transpose8_cuda(q8.codes),
              lambda: mvm4_cuda(q.codes, q.scales, x.codes, x.scales),
-             lambda: threshold4_cuda(x.codes, x.scales, 3)]
+             lambda: mvm8_cuda(4, q.codes, q.scales, x8.codes, x8.scales),
+             lambda: mvm8_cuda(8, q8.codes, q8.scales, x8.codes, x8.scales),
+             lambda: threshold4_cuda(x.codes, x.scales, 3),
+             lambda: threshold8_cuda(x8.codes, x8.scales, 3),
+             lambda: restore_vec_cuda(x.codes, x.scales, 4),
+             lambda: restore_vec_cuda(x8.codes, x8.scales, 8)]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
@@ -153,13 +162,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 def test_build_finds_sources_and_refuses_without_nvcc(monkeypatch, tmp_path):
     from clover_tpu_torch.kernels import _build
     names = sorted(p.name for p in _build._sources())
-    assert names == ["mvm.cu", "quantize.cu", "threshold.cu", "transpose.cu"]
+    assert names == ["mvm.cu", "quantize.cu", "restore.cu", "threshold.cu",
+                     "transpose.cu"]
     assert len(_build._digest()) == 16 and _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {
-        "clover_quantize_vec", "clover_quantize_mat", "clover_transpose4",
-        "clover_mvm4", "clover_threshold4"}
+        "clover_quantize_vec", "clover_quantize_mat", "clover_restore_vec",
+        "clover_transpose", "clover_mvm", "clover_threshold"}
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):

@@ -1,5 +1,5 @@
 """clover_tpu_torch MVM, fused MVM+AXPY and scaleAndAdd (the MVM kernel's
-plain version) against clover_tpu.
+plain versions, modes 4x4, 4x8 and 8x8) against clover_tpu.
 
 Integer block dots are exact in both packages; the f32 sum over blocks
 runs in another order (the port mirrors its CUDA kernel's lane order), so
@@ -14,9 +14,10 @@ import torch
 
 import clover_tpu as ct
 import clover_tpu_torch as tt
-from clover_tpu.kernels.mvm import mvm_axpy_pallas, mvm_pallas
-from clover_tpu_torch.kernels import mvm4_plain
-from clover_tpu_torch.kernels.mvm import blocked_products, blocked_sum
+from clover_tpu.kernels.mvm import (mvm_axpy_pallas, mvm_pallas,
+                                    mvm_pallas_eligible)
+from clover_tpu_torch.kernels import mvm4_plain, mvm8_plain
+from clover_tpu_torch.kernels.mvm import blocked_products, blocked_sum, groups
 from torch_helpers import assert_same, assert_within_lsb, to_jax, to_torch
 
 SIZES = [(128, 128), (200, 300), (256, 384), (512, 1024), (192, 2048)]
@@ -160,3 +161,86 @@ def test_mvm4_plain_raw_interface(rng):
                 tt.mvm(A, x))
     with pytest.raises(TypeError):
         tt.scale_and_add(u, tt.quantize(torch.zeros(128), 8), 1.0)
+
+
+@pytest.mark.parametrize("bits_a", [4, 8])
+@pytest.mark.parametrize("m,n", SIZES)
+def test_mvm8_matches_jax(rng, bits_a, m, n):
+    """4x8 and 8x8 against clover_tpu's XLA path and its Pallas kernel in
+    interpret mode, at ragged and 128-multiple sizes."""
+    jA, jx, _ = _problem(rng, m, n, bits_a, 8, 8)
+    got = tt.mvm(to_torch(jA), to_torch(jx))
+    assert isinstance(got, tt.QVec8) and got.length == m
+    assert_within_lsb(got, ct.mvm(jA, jx))
+    if mvm_pallas_eligible(jA, jx):
+        assert_within_lsb(got, mvm_pallas(jA, jx))
+
+
+@pytest.mark.parametrize("bits_a", [4, 8])
+@pytest.mark.parametrize("m,n", SIZES)
+@pytest.mark.parametrize("alpha", [-1.0, 0.00513])
+def test_mvm_axpy8_matches_jax(rng, bits_a, m, n, alpha):
+    """As test_mvm_axpy4_matches_jax, for the 8-bit output modes: the AXPY
+    stage on the same intermediate, the fused output where the
+    intermediates agree."""
+    jA, jx, ju = _problem(rng, m, n, bits_a, 8, 8)
+    A, x, u = to_torch(jA), to_torch(jx), to_torch(ju)
+    t1 = tt.mvm(A, x)
+    jt1 = ct.mvm(jA, jx)
+    assert_within_lsb(t1, jt1)
+    got = tt.mvm_axpy(A, x, u, alpha)
+    assert isinstance(got, tt.QVec8)
+    assert_within_lsb(got, ct.scale_and_add(ju, to_jax(t1), alpha))
+    same_t1 = np.array_equal(t1.codes.numpy(), np.asarray(jt1.codes))
+    if same_t1:
+        assert_within_lsb(got, ct.mvm_axpy(jA, jx, ju, alpha))
+    if (mvm_pallas_eligible(jA, jx) and np.array_equal(
+            t1.codes.numpy(), np.asarray(mvm_pallas(jA, jx).codes))):
+        assert_within_lsb(got, mvm_axpy_pallas(jA, jx, ju, alpha))
+    # 8-bit codes part at 1 LSB more often than 4-bit ones; these sizes
+    # agree, so the fused comparison is not vacuous
+    if (m, n) in ((128, 128), (192, 2048)):
+        assert same_t1
+
+
+@pytest.mark.parametrize("bits_a", [4, 8])
+@pytest.mark.parametrize("gens", [(None, None), (3, None), (5, 6)])
+def test_mvm8_fused_equals_unfused(rng, bits_a, gens):
+    A, x, u = (to_torch(q) for q in _problem(rng, 256, 512, bits_a, 8, 8))
+    got = tt.mvm_axpy(A, x, u, 0.25, *gens)
+    want = tt.scale_and_add(u, tt.mvm(A, x, gens[0]), 0.25, gens[1])
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("bits_a", [4, 8])
+def test_mvm8_plain_sums_in_the_kernel_lane_order(rng, bits_a):
+    """mvm8_plain's f32 row sums are a scalar emulation of the CUDA
+    kernel's warp for its mode: G = 16 groups (a lane pair per packed
+    4-bit block) or 8 (a lane quad per 8-bit block); group g accumulates
+    blocks g, g+G, ... from 0, then the groups reduce by xor-shuffles
+    (g, g^G/2), ..., (g, g^1).  The band requant of the emulated sums
+    gives the plain version's bytes."""
+    m, n = 128, 1536                               # nb = 24: a ragged chunk
+    A, x, _ = (to_torch(q) for q in _problem(rng, m, n, bits_a, 8, 8))
+    G = 16 if bits_a == 4 else 8
+    assert groups(bits_a) == G
+    prods = blocked_products(A.codes, A.scales, x.codes, x.scales, bits_a, 8)
+    f = np.float32
+    y = np.zeros(prods.shape[0], np.float32)
+    for row in range(prods.shape[0]):
+        acc = [f(0.0)] * G
+        for c in range(-(-prods.shape[1] // G)):
+            for g in range(G):
+                b = G * c + g
+                if b < prods.shape[1]:
+                    acc[g] = f(acc[g] + prods[row, b].item())
+        off = G // 2
+        while off:
+            acc = [f(acc[g] + acc[g ^ off]) for g in range(G)]
+            off //= 2
+        y[row] = acc[0]
+    np.testing.assert_array_equal(
+        blocked_sum(prods, G).numpy().view(np.uint32), y.view(np.uint32))
+    codes, scales = mvm8_plain(bits_a, A.codes, A.scales, x.codes, x.scales)
+    want = tt.quantize(torch.from_numpy(y), 8)
+    assert torch.equal(codes, want.codes) and torch.equal(scales, want.scales)

@@ -28,15 +28,15 @@ from clover_tpu_torch.models.solvers import _iteration, _op_seeds
 from torch_helpers import assert_same, assert_within_lsb, to_torch
 
 
-def _instance(seed, m, n, k):
+def _instance(seed, m, n, k, bits_a=4, bits_v=4):
     rng = np.random.default_rng(seed)
     phi = rng.random((m, n), dtype=np.float32) * 2 - 1
     xs = np.zeros(n, np.float32)
     xs[rng.permutation(n)[:k]] = 1.0
     x0 = rng.random(n, dtype=np.float32) * 2 - 1
-    jq = ct.quantize(jnp.asarray(phi), 4)
-    return (jq, ct.transpose(jq), ct.quantize(jnp.asarray(phi @ xs), 4),
-            ct.quantize(jnp.asarray(x0), 4))
+    jq = ct.quantize(jnp.asarray(phi), bits_a)
+    return (jq, ct.transpose(jq), ct.quantize(jnp.asarray(phi @ xs), bits_v),
+            ct.quantize(jnp.asarray(x0), bits_v))
 
 
 def test_iteration_matches_jax():
@@ -86,6 +86,61 @@ def test_iht_reference_instance_trace():
     assert got[-1] < 0.5 * got[0]
     assert isinstance(res.x, tt.QVec4) and res.x.length == 1024
     assert int((tt.unpack_nibbles(res.x.codes) != 0).sum()) <= 64
+
+
+@pytest.mark.parametrize("bits_a", [4, 8])
+def test_iteration_8bit_vectors_matches_jax(bits_a):
+    """Mixed 4x8 (4-bit Phi, 8-bit y and x) and pure 8-bit: stage by
+    stage from the same inputs, as test_iteration_matches_jax."""
+    mu, agreed = 0.004, 0
+    for seed, (m, n, k) in enumerate([(128, 256, 16), (128, 256, 16),
+                                      (256, 512, 32), (512, 1024, 64)]):
+        jargs = _instance(seed, m, n, k, bits_a, 8)
+        jPhi, jPhiT, jy, jx = jargs
+        Phi, PhiT, y, x = (to_torch(q) for q in jargs)
+        t2 = tt.mvm_axpy(Phi, x, y, -1.0)
+        jt2 = ct.mvm_axpy(jPhi, jx, jy, -1.0)
+        assert isinstance(t2, tt.QVec8)
+        assert_within_lsb(t2, jt2)
+        x1 = tt.mvm_axpy(PhiT, to_torch(jt2), x, mu)
+        jx1 = ct.mvm_axpy(jPhiT, jt2, jx, jnp.float32(mu))
+        assert_within_lsb(x1, jx1)
+        assert_within_lsb(tt.mvm(Phi, x), ct.mvm(jPhi, jx))
+        assert_within_lsb(tt.mvm(PhiT, to_torch(jt2)), ct.mvm(jPhiT, jt2))
+        assert_same(tt.threshold(to_torch(jx1), k), ct.threshold(jx1, k))
+        got = _iteration(Phi, PhiT, y, x, mu, k, None)
+        assert isinstance(got, tt.QVec8)
+        assert_same(got, tt.threshold(tt.mvm_axpy(PhiT, t2, x, mu), k))
+        same = (np.array_equal(t2.codes.numpy(), np.asarray(jt2.codes))
+                and np.array_equal(x1.codes.numpy(), np.asarray(jx1.codes)))
+        if same:
+            assert_within_lsb(got, jax_iteration(*jargs, jnp.float32(mu), k,
+                                                 None))
+            agreed += 1
+    assert agreed >= (2 if bits_a == 4 else 1)    # 3 and 1 at these seeds
+
+
+@pytest.mark.parametrize("config", ["4x8", 8])
+def test_iht_reference_instance_trace_8bit_vectors(config):
+    """As test_iht_reference_instance_trace for the mixed 4x8 and pure
+    8-bit accuracy configurations: deterministic traced IHT on the
+    reference's instance, x starting at 8 bits; same first step within
+    5%, same plateau regime (final within max(1.3x, +0.05) both ways)."""
+    phi, xs, y = make_iht_problem_reference()
+    want = np.asarray(run_iht_accuracy(config, epochs=200, key=None))
+    q = tt.quantize(torch.from_numpy(phi), 4 if config == "4x8" else 8)
+    res = tt.iht(q, tt.transpose(q), tt.quantize(torch.from_numpy(y), 8),
+                 200, 64, ACCURACY_MU[config],
+                 x_star=tt.QVec32(values=tt.formats.pad_vector(
+                     torch.from_numpy(xs)), length=1024))
+    got = res.trace.numpy()
+    assert got.shape == (200,) and np.all(np.isfinite(got))
+    assert abs(got[0] - want[0]) <= 0.05 * want[0]
+    assert got[-1] <= max(1.3 * want[-1], want[-1] + 0.05)
+    assert want[-1] <= max(1.3 * got[-1], got[-1] + 0.05)
+    assert got[-1] < 0.5 * got[0]
+    assert isinstance(res.x, tt.QVec8) and res.x.length == 1024
+    assert int((res.x.codes != 0).sum()) <= 64
 
 
 @pytest.mark.parametrize("bits", [8, 4])

@@ -1,5 +1,5 @@
-"""clover_tpu_torch threshold (the 4-bit kernel's plain version) against
-clover_tpu: exact top-K in golden order (|value| descending, index
+"""clover_tpu_torch threshold (the 4- and 8-bit kernels' plain versions)
+against clover_tpu: exact top-K in golden order (|value| descending, index
 ascending), bit-identical codes, scales untouched -- across tie storms,
 integer-valued data, k > nnz and ragged lengths."""
 
@@ -12,8 +12,12 @@ import clover_tpu as ct
 import clover_tpu_torch as tt
 from clover_tpu import golden
 from clover_tpu.kernels.threshold import (threshold4_pallas,
-                                          threshold4_pallas_eligible)
+                                          threshold4_pallas_eligible,
+                                          threshold8_pallas,
+                                          threshold8_pallas_eligible)
 from clover_tpu.ops.threshold import _threshold4_xla
+from clover_tpu_torch.kernels import threshold8_plain
+from clover_tpu_torch.kernels.threshold import golden_keep
 from torch_helpers import assert_same, element_codes, to_torch
 
 
@@ -71,3 +75,67 @@ def test_threshold_dense_matches_jax(rng, bits):
               rng.integers(-3, 4, n).astype(np.float32)):
         jq = ct.quantize(jnp.asarray(v), bits)
         assert_same(tt.threshold(to_torch(jq), k), ct.threshold(jq, k))
+
+
+@pytest.mark.parametrize("n,k", [(256, 3), (300, 50), (1024, 64),
+                                 (4096, 1024), (4096, 257), (16384, 4096)])
+def test_threshold8_matches_jax(rng, n, k):
+    """8-bit: bit-identical to clover_tpu's dense XLA path, its Pallas
+    kernel in interpret mode and golden.py, with k in {k, 1, 0}.
+    clover_tpu's dense path refuses k=0 (approx_max_k), so k=0 is held to
+    golden.py alone."""
+    for name, v in _cases(rng, n, k).items():
+        jq = ct.quantize(jnp.asarray(v), 8)
+        tq = to_torch(jq)
+        for kk in (k, 1, 0):
+            got = tt.threshold(tq, kk)
+            assert got.scales is tq.scales, name
+            if kk:
+                assert_same(got, ct.threshold(jq, kk))
+                if threshold8_pallas_eligible(jq, kk) and n <= 4096:
+                    assert_same(got, threshold8_pallas(jq, kk))
+            want = golden.threshold(element_codes(jq), np.asarray(jq.scales),
+                                    kk, n, 8)
+            np.testing.assert_array_equal(element_codes(got), want)
+            np.testing.assert_array_equal(
+                threshold8_plain(tq.codes, tq.scales, kk, n).numpy(),
+                got.codes.numpy())
+
+
+def test_threshold8_ties_break_to_lower_index():
+    """Identical values across blocks, and k > nnz (the zero ties fill in
+    index order, writing zero codes)."""
+    q = tt.quantize(torch.ones(512), 8)
+    for k in (1, 63, 64, 65, 200):
+        kept = tt.threshold(q, k).codes != 0
+        assert torch.equal(kept, torch.arange(512) < k), k
+    v = torch.zeros(512)
+    v[[5, 100, 400]] = torch.tensor([0.5, -1.0, 0.25])
+    got = tt.threshold(tt.quantize(v, 8), 64)
+    assert torch.equal(torch.nonzero(got.codes).flatten(),
+                       torch.tensor([5, 100, 400]))
+
+
+@pytest.mark.parametrize("bits", [8, 16, 32])
+def test_threshold_plain_builds_its_mask_on_the_data_device(bits):
+    """The plain 8/16/32-bit threshold builds the padding mask where the
+    data lives: on a meta tensor (as on a CUDA one) nothing mixes devices.
+    A mask built on the CPU fails here with 'Tensor on device meta is not
+    on the expected device cpu'."""
+    n, length, k = 384, 300, 10
+    if bits == 8:
+        codes = torch.zeros(n, dtype=torch.int8, device="meta")
+        scales = torch.ones(n // 64, device="meta")
+        out = threshold8_plain(codes, scales, k, length)
+        assert out.device.type == "meta" and out.dtype == torch.int8
+    else:
+        values = torch.zeros(n, device="meta")
+        out = golden_keep(values, k, length)
+        assert out.device.type == "meta" and out.dtype == torch.bool
+    assert out.shape == (n,)
+    # the CPU-built mask this replaces
+    with pytest.raises(RuntimeError, match="device"):
+        torch.where(torch.arange(n) < length,
+                    torch.zeros(n, dtype=torch.int64, device="meta"),
+                    torch.full((n,), -1, dtype=torch.int64, device="meta")
+                    ).sum()
