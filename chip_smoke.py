@@ -11,7 +11,16 @@ exact top-K threshold.
 - pure 4-bit, untraced;
 - mixed 4x8 (4-bit Phi, 8-bit y and x), traced: every iteration restores
   x and records ||x - x*|| / ||x*|| on the device;
-- pure 8-bit, traced.
+- pure 8-bit, traced;
+
+and, on the batching and serving path:
+
+- a batched 4-bit IHT of B=8 problems against the same Phi (one batched
+  MVM per leg, one AXPY per leg over the whole batch, one threshold of
+  the batch per iteration), traced and untraced;
+- an MVMServer on a resident 16384x16384 matrix answering bursts of
+  requests from 4 client threads: 4-bit matrix with 4-bit and 8-bit
+  requests (modes 4x4, 4x8), 8-bit matrix with 8-bit requests (8x8).
 
 Phases, each of which raises on failure:
 
@@ -20,16 +29,28 @@ Phases, each of which raises on failure:
 2. each kernel against its plain torch version on the card, at the main
    paths' shapes and at a ragged 200x300, deterministic and SR:
    quantize, restore, transpose and threshold bit-identical, MVM/AXPY
-   codes within 1 LSB and scales within rtol 1e-6; device times by CUDA
-   events (median of 5 windows of 20 back-to-back launches queued behind
-   a spin kernel; plain versions 3 single calls);
+   codes within 1 LSB and scales within rtol 1e-6; the standalone AXPY
+   bit-identical (single and stacked), and mvm -> scale_and_add equal to
+   the fused mvm_axpy; the batched MVM bit-identical to per-vector plain
+   MVMs with seeds seed + j (16384x16384 at B = 2, 3, 8, 32; 8192x16384
+   at B = 8; 200x300 at B = 3); the batched threshold bit-identical to
+   per-row plain ones; device times by CUDA events (median of 5 windows
+   of 20 back-to-back launches queued behind a spin kernel; plain
+   versions 3 single calls), and the batched MVM's per-vector time at
+   B = 1 ... 32 against single-kernel calls;
 3. the main paths through the public entry points: Phi and y quantized
    with a seeded generator (stochastic rounding), deterministic
    iterations as in the search that tuned mu; exact launch counts,
    relative recovery error (the trace's last entry against a host-side
    restore), iterations/s traced and untraced;
 4. a deterministic solve per configuration, kernels against plain
-   versions.
+   versions;
+5. the batched IHT: exact launch counts, every problem's error below
+   1.0, the trace's last row against host-side restores, the solutions
+   bit-identical to 8 single solves, problem-iterations/s beside the
+   single solves';
+6. the server: every result bit-identical to ``tt.mvm``, batched-kernel
+   launches in every mode, requests/s and p50/p99 latency.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
@@ -46,6 +67,13 @@ import sys
 import time
 
 M, N, K = 8192, 16384, 4096
+NS = 16384                    # the served matrices' side
+BATCH = 8                     # problems of the batched IHT
+BATCH_SIZES = (2, 3, 8, 32)   # batched-MVM checks at NS x NS
+SWEEP = (1, 2, 4, 8, 16, 32)  # batched-MVM timing
+MODES = ((4, 4), (4, 8), (8, 8))
+CLIENTS = 4
+WAIT_S = 60.0                 # bound on every wait for a future or thread
 TIMED_ITERS = 100
 SEED = 0
 MVM_SCALE_RTOL = 1e-6
@@ -74,6 +102,10 @@ KERNEL_INFO = {
     "mvm8": ("clover_tpu_torch/csrc/mvm.cu", "clover_tpu/kernels/mvm.py:552"),
     "threshold8": ("clover_tpu_torch/csrc/threshold.cu",
                    "clover_tpu/kernels/threshold.py:180"),
+    "axpy": ("clover_tpu_torch/csrc/axpy.cu",
+             "clover_tpu/kernels/quantize.py:371"),
+    "mvm_batched": ("clover_tpu_torch/csrc/mvm_batched.cu",
+                    "clover_tpu/kernels/mvm_batched.py:314"),
 }
 
 
@@ -142,6 +174,7 @@ class Report:
         self.ms = {}
         self.plain_ms = {}
         self.leg_ms = {}     # (mode, leg) -> kernel ms of an MVM+AXPY leg
+        self.sweep = {}      # B -> batched MVM ms, 4x4 at NS x NS
 
     def exact(self, name: str, what: str, got, want, bits: int = 4):
         """Kernel output must equal the plain one: (codes, scales) pairs,
@@ -378,7 +411,136 @@ def check_ragged(rep: Report, gen, modes):
                       plain(*args[:4], seed1=seed, noise1=noise), bits_x)
 
 
-def phase_kernels(rep: Report, phi, gen):
+def flat(pair):
+    """(codes, scales) of a stacked batch as one flat vector, for
+    Report.exact."""
+    codes, scales = pair
+    return codes.reshape(-1), scales.reshape(-1)
+
+
+def check_axpy(rep: Report, gen, qphi, qy, qx, modes):
+    """The standalone AXPY against its plain version, single and stacked;
+    mvm -> scale_and_add through two kernels against the fused mvm_axpy."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch.kernels import axpy_cuda, axpy_plain
+    dev = gen.device
+    stacked = {}
+    for bits in (4, 8):
+        us, vs = (tt.stack_vectors([
+            tt.quantize(torch.randn(N, generator=gen, device=dev), bits,
+                        generator=gen) for _ in range(BATCH)])
+            for _ in range(2))
+        stacked[bits] = (*flat((us.codes, us.scales)),
+                         *flat((vs.codes, vs.scales)))
+        single = (us.codes[0], us.scales[0], vs.codes[0], vs.scales[0])
+        for what, seed, noise in modes:
+            for shape, ops in ((f"{N}", single),
+                               (f"{BATCH}x{N} stacked", stacked[bits])):
+                args = (*ops, -0.73, bits, seed, noise)
+                rep.exact("axpy", f"{shape} {bits}-bit {what}",
+                          axpy_cuda(*args), axpy_plain(*args), bits)
+    for bits_a, bits_x in MODES:
+        a, x, u = qphi[bits_a], qx[bits_x], qy[bits_x]
+        for what, seed, noise in modes:
+            g1, g2 = (seed, seed + 1) if noise else (None, None)
+            two = tt.scale_and_add(u, tt.mvm(a, x, g1), -1.0, g2)
+            fused = tt.mvm_axpy(a, x, u, -1.0, g1, g2)
+            rep.exact("axpy", f"{bits_a}x{bits_x} mvm+axpy = mvm_axpy {what}",
+                      (two.codes, two.scales), (fused.codes, fused.scales),
+                      bits_x)
+    args = (*stacked[4], -0.73, 4, 1, True)
+    rep.time("axpy", lambda: axpy_cuda(*args), lambda: axpy_plain(*args))
+
+
+def stacked_requests(gen, count: int, n: int, bits: int):
+    """``count`` quantized random vectors of length n, stacked."""
+    import torch
+    import clover_tpu_torch as tt
+    f = torch.rand(count, n, generator=gen, device=gen.device) * 2 - 1
+    return tt.stack_vectors([tt.quantize(f[j], bits) for j in range(count)])
+
+
+def check_mvm_batched(rep: Report, gen, qphi, mats, modes):
+    """The batched MVM against B per-vector plain MVMs (seeds seed + j),
+    and its per-vector time against single-kernel calls."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch.kernels import (mvm4_cuda, mvm_batched_cuda,
+                                          mvm_batched_plain)
+    dev = gen.device
+    xs = {bits: stacked_requests(gen, max(BATCH_SIZES), NS, bits)
+          for bits in (4, 8)}
+    ragged = torch.rand(200, 300, generator=gen, device=dev) * 2 - 1
+    for bits_a, bits_x in MODES:
+        mode, bits_out = f"{bits_a}x{bits_x}", 4 if bits_x == 4 else 8
+        x = xs[bits_x]
+        cases = [(f"{NS}x{NS} B={b}", mats[bits_a], x.codes[:b],
+                  x.scales[:b]) for b in BATCH_SIZES]
+        cases.append((f"{M}x{N} B={BATCH}", qphi[bits_a], x.codes[:BATCH],
+                      x.scales[:BATCH]))
+        for what, seed, noise in modes:
+            qa = tt.quantize(ragged, bits_a, generator=seed if noise else None)
+            xr = tt.stack_vectors([tt.quantize(ragged[j], bits_x)
+                                   for j in range(3)])
+            for shape, a, xc, xsc in cases + [
+                    ("200x300 B=3", qa, xr.codes, xr.scales)]:
+                args = (bits_a, bits_x, a.codes, a.scales, xc, xsc, seed,
+                        noise)
+                rep.exact("mvm_batched", f"{mode} {shape} {what}",
+                          flat(mvm_batched_cuda(*args)),
+                          flat(mvm_batched_plain(*args)), bits_out)
+    a, x = qphi[4], xs[4]
+    args = (4, 4, a.codes, a.scales, x.codes[:BATCH], x.scales[:BATCH], 1,
+            True)
+    rep.time("mvm_batched", lambda: mvm_batched_cuda(*args),
+             lambda: mvm_batched_plain(*args))
+    a = mats[4]
+    single = median_ms(lambda: mvm4_cuda(a.codes, a.scales, x.codes[0],
+                                         x.scales[0], seed1=1, noise1=True),
+                       5, 20)
+    print(f"  mvm_batched 4x4 {NS}x{NS} SR: single-vector kernel "
+          f"{single:.4f} ms")
+    for b in SWEEP:
+        ms = median_ms(lambda: mvm_batched_cuda(4, 4, a.codes, a.scales,
+                                                x.codes[:b], x.scales[:b], 1,
+                                                True), 5, 20)
+        rep.sweep[b] = ms
+        print(f"  mvm_batched 4x4 {NS}x{NS} B={b:2d}: {ms:.4f} ms, "
+              f"{ms / b:.4f} ms per vector, {single * b / ms:.2f}x the "
+              f"throughput of {b} single-kernel calls")
+
+
+def check_threshold_batched(rep: Report, gen):
+    """Stacked thresholds (dense SR rows, integer-valued, tie storm,
+    k > nnz) against the per-row plain versions."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch.kernels import (threshold4_cuda, threshold4_plain,
+                                          threshold8_cuda, threshold8_plain)
+    dev = gen.device
+    ints = torch.randint(-3, 4, (N,), generator=gen, device=dev).float()
+    storm = torch.rand(N // 64, generator=gen, device=dev).repeat_interleave(64)
+    sparse = torch.zeros(N, device=dev)
+    sparse[torch.randperm(N, generator=gen, device=dev)[:K // 2]] = 1.0
+    for bits, cuda, plain in (
+            (4, threshold4_cuda, threshold4_plain),
+            (8, threshold8_cuda,
+             lambda c, s, k: threshold8_plain(c, s, k, N))):
+        rows = [tt.quantize(torch.randn(N, generator=gen, device=dev), bits,
+                            generator=gen) for _ in range(BATCH - 3)]
+        rows += [tt.quantize(v, bits) for v in (ints, storm, sparse)]
+        q = tt.stack_vectors(rows)
+        for k in (K, 1, 0):
+            rep.exact(f"threshold{bits}", f"B={BATCH} n={N} k={k} stacked",
+                      flat((cuda(q.codes, q.scales, k), q.scales)),
+                      flat((plain(q.codes, q.scales, k), q.scales)), bits)
+        ms = median_ms(lambda: cuda(q.codes, q.scales, K), 5, 20)
+        print(f"  threshold{bits}   B={BATCH} n={N} K={K} stacked: kernel "
+              f"{ms:.4f} ms")
+
+
+def phase_kernels(rep: Report, phi, mats, gen):
     """Every kernel against its plain version, on the main paths' shapes."""
     import torch
     import clover_tpu_torch as tt
@@ -397,6 +559,9 @@ def phase_kernels(rep: Report, phi, gen):
     iterates = check_mvm(rep, qphi, phit, qy, qx, modes)
     check_threshold(rep, iterates, xf, gen)
     check_ragged(rep, gen, modes)
+    check_axpy(rep, gen, qphi, qy, qx, modes)
+    check_mvm_batched(rep, gen, qphi, mats, modes)
+    check_threshold_batched(rep, gen)
 
 
 def recovery_error(x, x_star) -> float:
@@ -536,6 +701,199 @@ def phase_solve_parity(name: str, phi, x_star, y):
         raise AssertionError(f"solve errors differ: {ek} vs {ep}")
 
 
+def serving_matrices(gen):
+    """The served NS x NS matrices, 4- and 8-bit, SR-quantized."""
+    import torch
+    import clover_tpu_torch as tt
+    a = torch.rand(NS, NS, generator=gen, device=gen.device) * 2 - 1
+    mats = {bits: tt.quantize(a, bits, generator=gen) for bits in (4, 8)}
+    del a
+    torch.cuda.empty_cache()
+    return mats
+
+
+def batched_expected(iters: int, traced: bool):
+    counts = dict.fromkeys(KERNEL_INFO, 0)
+    counts.update(quantize_mat=1, quantize_vec=BATCH, transpose4=1,
+                  mvm_batched=2 * iters, axpy=2 * iters, threshold4=iters,
+                  restore_vec=iters if traced else 0)
+    return counts
+
+
+def timed(fn) -> tuple[float, float]:
+    """-> (host-clock ms, CUDA-event ms) of one call of ``fn`` after a
+    synchronize, ending in one."""
+    import torch
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return (time.perf_counter() - t0) * 1e3, start.elapsed_time(end)
+
+
+def phase_batched_iht(phi):
+    """The batched 4-bit IHT of BATCH problems through the public entry
+    points; -> its launch counts."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch import kernels
+    bits_a, bits_v, iters, mu, quality = config("4")
+    dev = phi.device
+    print(f"== 5. batched IHT: B={BATCH} problems, {M}x{N} K={K} mu={mu} "
+          f"iterations={iters}, traced")
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    stars = torch.zeros(BATCH, N, device=dev)
+    for j in range(BATCH):
+        stars[j, torch.randperm(N, generator=g, device=dev)[:K]] = 1.0
+    yf = (phi @ stars.T).T.contiguous()               # y_j = Phi x*_j
+    xs_star = tt.QVec32(values=stars, length=N)
+    kernels.reset_launch_counts()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qphi = tt.quantize(phi, bits_a, generator=gen)
+    qys = [tt.quantize(yf[j], bits_v, generator=gen) for j in range(BATCH)]
+    qphit = tt.transpose(qphi)
+    ys = tt.stack_vectors(qys)
+    res = tt.iht_batched(qphi, qphit, ys, iters, K, mu, xs_star=xs_star)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    expected = batched_expected(iters, True)
+    print(f"  launches {counts} in {wall * 1e3:.2f} ms")
+    if counts != expected:
+        raise AssertionError(f"launch counts {counts} != expected {expected}")
+    errs = [recovery_error(tt.vector_at(res.xs, j), stars[j])
+            for j in range(BATCH)]
+    last = [float(t) for t in res.trace[-1]]
+    print(f"  errors after {iters} iterations {[round(e, 6) for e in errs]} "
+          f"(table quality {quality:.4f}); trace's last row "
+          f"{[round(t, 6) for t in last]}")
+    if res.trace.shape != (iters, BATCH):
+        raise AssertionError(f"trace shape {tuple(res.trace.shape)}")
+    for e, t in zip(errs, last):
+        if not math.isfinite(e) or e >= 1.0 or abs(e - t) > TRACE_TOL:
+            raise AssertionError(f"error {e} (trace {t}) not below 1.0 or "
+                                 f"off the trace")
+    for j in range(BATCH):
+        single = tt.iht(qphi, qphit, qys[j], iters, K, mu)
+        if not (torch.equal(single.x.codes, res.xs.codes[j])
+                and torch.equal(single.x.scales, res.xs.scales[j])):
+            raise AssertionError(f"problem {j}: batched != single solve")
+    print(f"  all {BATCH} solutions bit-identical to single tt.iht solves")
+
+    tt.iht_batched(qphi, qphit, ys, 5, K, mu, xs_star=xs_star)   # warm-up
+    for label, star in (("untraced", None), ("traced", xs_star)):
+        host, dev_ms = timed(lambda: tt.iht_batched(
+            qphi, qphit, ys, TIMED_ITERS, K, mu, xs_star=star))
+        rate = BATCH * TIMED_ITERS * 1e3
+        print(f"  batched {label}: {rate / host:.1f} problem-iterations/s "
+              f"(host clock, {host / TIMED_ITERS:.4f} ms per batched "
+              f"iteration; CUDA events {rate / dev_ms:.1f}, "
+              f"{dev_ms / TIMED_ITERS:.4f} ms)")
+
+    def singles():
+        for q in qys:
+            tt.iht(qphi, qphit, q, TIMED_ITERS, K, mu)
+    host, dev_ms = timed(singles)
+    rate = BATCH * TIMED_ITERS * 1e3
+    print(f"  {BATCH} single solves untraced: {rate / host:.1f} "
+          f"problem-iterations/s (host clock; CUDA events "
+          f"{rate / dev_ms:.1f})")
+    return counts
+
+
+def serve(server, requests):
+    """Bursts from CLIENTS threads, each submitting every CLIENTS-th
+    request and then waiting for its results in order; a latency runs
+    from submit to the result on the card.  -> (results, wall s, sorted
+    latencies s)."""
+    import threading
+    import torch
+    import clover_tpu_torch as tt
+    results = [None] * requests.codes.shape[0]
+    lat: list[float] = []
+    errors: list[Exception] = []
+
+    def client(c):
+        try:
+            futs = [(i, time.perf_counter(),
+                     server.submit(tt.vector_at(requests, i)))
+                    for i in range(c, len(results), CLIENTS)]
+            for i, t0, fut in futs:
+                results[i] = fut.result(timeout=WAIT_S)
+                torch.cuda.current_stream().synchronize()
+                lat.append(time.perf_counter() - t0)
+        except Exception as e:          # re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=WAIT_S)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client thread did not finish")
+    if errors:
+        raise errors[0]
+    return results, wall, sorted(lat)
+
+
+def phase_server(mats, gen):
+    """MVMServer on the NS x NS matrices in modes 4x4, 4x8 and 8x8; ->
+    the launch counts of the three runs."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch import kernels
+    from clover_tpu_torch.serving import MVMServer
+    print(f"== 6. MVMServer on {NS}x{NS}, max_batch=32, max_wait_s=0.002, "
+          f"{CLIENTS} client threads")
+    req = {4: stacked_requests(gen, 512, NS, 4),
+           8: stacked_requests(gen, 128, NS, 8)}
+    totals = dict.fromkeys(KERNEL_INFO, 0)
+    s4 = MVMServer(mats[4], max_batch=32, max_wait_s=0.002)
+    s8 = MVMServer(mats[8], max_batch=32, max_wait_s=0.002)
+    try:
+        for mode, server, a, reqs in (("4x4", s4, mats[4], req[4]),
+                                      ("4x8", s4, mats[4], req[8]),
+                                      ("8x8", s8, mats[8], req[8])):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            results, wall, lat = serve(server, reqs)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            if counts["mvm_batched"] == 0:
+                raise AssertionError(f"{mode}: no batched-MVM launch")
+            for name, n in counts.items():
+                totals[name] += n
+            n = len(results)
+            bad = 0
+            for i, y in enumerate(results):
+                want = tt.mvm(a, tt.vector_at(reqs, i))
+                bad += not (torch.equal(y.codes, want.codes)
+                            and torch.equal(y.scales, want.scales))
+            if bad:
+                raise AssertionError(f"{mode}: {bad} of {n} results differ "
+                                     f"from tt.mvm")
+            p99 = lat[min(n - 1, math.ceil(0.99 * n) - 1)]
+            print(f"  {mode}: {n} requests in {wall * 1e3:.2f} ms, "
+                  f"{n / wall:.1f} requests/s, latency p50 "
+                  f"{lat[n // 2] * 1e3:.3f} ms p99 {p99 * 1e3:.3f} ms; "
+                  f"launches mvm_batched {counts['mvm_batched']}, mvm4 "
+                  f"{counts['mvm4']}, mvm8 {counts['mvm8']}; all results "
+                  f"bit-identical to tt.mvm")
+    finally:
+        s4.close()
+        s8.close()
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -545,14 +903,16 @@ def main() -> int:
     phase_build()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     phi, x_star, y = make_iht_problem(M, N, K, generator=gen)
+    mats = serving_matrices(gen)
     rep = Report()
-    phase_kernels(rep, phi, gen)
-    launches = dict.fromkeys(KERNEL_INFO, 0)
-    for name in CONFIGS:
-        for kernel, n in phase_main_path(rep, name, phi, x_star, y).items():
-            launches[kernel] += n
+    phase_kernels(rep, phi, mats, gen)
+    runs = [phase_main_path(rep, name, phi, x_star, y) for name in CONFIGS]
     for name in CONFIGS:
         phase_solve_parity(name, phi, x_star, y)
+    runs.append(phase_batched_iht(phi))
+    runs.append(phase_server(mats, gen))
+    launches = {kernel: sum(run[kernel] for run in runs)
+                for kernel in KERNEL_INFO}
     for kernel, n in launches.items():
         if n == 0:
             raise AssertionError(f"{kernel} never launched on a main path")

@@ -11,10 +11,15 @@ package imports neither jax nor clover_tpu, and builds nothing.
 
 from .formats import (
     BLOCK, PAD, QMat4, QMat8, QMat16, QMat32, QVec4, QVec8, QVec16, QVec32,
-    pack_nibbles, pad_to, to_device, unpack_nibbles, zeros_vector,
+    pack_nibbles, pad_to, stack_vectors, to_device, unpack_nibbles,
+    vector_at, zeros_vector,
 )
-from .models import SolveResult, gd, iht, make_iht_problem
+from .models import (
+    BatchSolveResult, SolveResult, gd, gd_batched, iht, iht_batched,
+    make_iht_problem,
+)
 from .ops.axpy import scale_and_add
+from .ops.gemm import gemm_f32, mvm_batched, mvm_batched_f32
 from .ops.mvm import mvm, mvm_axpy, mvm_f32
 from .ops.quantize import (
     quantize, quantize_mat, quantize_vec, restore, restore_mat, restore_vec,
@@ -29,8 +34,11 @@ __all__ = [
     "QVec4", "QVec8", "QVec16", "QVec32",
     "QMat4", "QMat8", "QMat16", "QMat32",
     "pack_nibbles", "unpack_nibbles", "pad_to", "zeros_vector", "to_device",
+    "stack_vectors", "vector_at",
     "quantize", "quantize_vec", "quantize_mat",
     "restore", "restore_vec", "restore_mat",
     "scale_and_add", "mvm", "mvm_axpy", "mvm_f32", "threshold", "transpose",
+    "mvm_batched", "mvm_batched_f32", "gemm_f32",
     "iht", "gd", "SolveResult", "make_iht_problem",
+    "iht_batched", "gd_batched", "BatchSolveResult",
 ]

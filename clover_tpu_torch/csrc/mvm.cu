@@ -37,19 +37,9 @@
 // (4-bit A) or 8 (8-bit A), group g adds the products of blocks g, g + G,
 // g + 2G, ... in that order, starting from 0; then the G group sums reduce
 // as (g, g ^ G/2), (g, g ^ G/4), ..., (g, g ^ 1).
-#include "common.cuh"
+#include "mvm.cuh"
 
 namespace clover {
-
-constexpr int MV_WARPS = 8;
-constexpr int MV_ROWS = 64 / MV_WARPS;  // rows per warp
-constexpr int MV_CHUNK = 512;           // bytes of a row per warp step
-
-// Packed word of 4 bytes -> (low codes, high codes) as signed int8x4.
-__device__ __forceinline__ void unpack_word(uint32_t w, int& lo, int& hi) {
-  lo = (int)__vsub4(w & 0x0F0F0F0Fu, 0x08080808u);
-  hi = (int)__vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
 
 template <int BA, int BX>
 __global__ void __launch_bounds__(256)

@@ -10,7 +10,10 @@
 // (s/qmax divided first, IEEE), whose non-negative patterns order like the
 // values.  Scales are never touched.
 //
-// Design: one CTA of 1024 threads.  A radix select over the 32-bit patterns,
+// Design: one CTA of 1024 threads per vector; a stacked batch of B vectors
+// (rows of n_pad elements, contiguous) launches B CTAs, blockIdx.x picking
+// the row, as clover_tpu vmaps the threshold over a batch
+// (models/batch.py).  A radix select over the 32-bit patterns,
 // four passes of 8 bits with a shared 256-bin histogram, finds the exact
 // K-th largest pattern tau and how many ties at tau to keep; neither leaves
 // the device.  A last pass gives each thread one 64-element block, counts
@@ -68,6 +71,9 @@ threshold_kernel(const int8_t* __restrict__ codes,
   __shared__ uint32_t warp_off[TH_THREADS / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int64_t nb = n_pad / 64, nbytes = nb * BYTES;
+  codes += blockIdx.x * nbytes;  // this CTA's row of a stacked batch
+  scales += blockIdx.x * nb;
+  out += blockIdx.x * nbytes;
 
   // ---- radix select: tau = K-th largest pattern, fill = ties to keep ----
   // (k = 0 keeps nothing: tau above every non-negative pattern, fill 0)
@@ -221,13 +227,14 @@ threshold_kernel(const int8_t* __restrict__ codes,
 
 extern "C" int clover_threshold(const int8_t* codes, const float* scales,
                                 int8_t* out, int64_t n_pad, int64_t k,
-                                int bits, void* stream) {
+                                int bits, int64_t batch, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const unsigned grid = (unsigned)batch;
   if (bits == 4)
-    clover::threshold_kernel<4><<<1, clover::TH_THREADS, 0, s>>>(
+    clover::threshold_kernel<4><<<grid, clover::TH_THREADS, 0, s>>>(
         codes, scales, out, n_pad, k);
   else
-    clover::threshold_kernel<8><<<1, clover::TH_THREADS, 0, s>>>(
+    clover::threshold_kernel<8><<<grid, clover::TH_THREADS, 0, s>>>(
         codes, scales, out, n_pad, k);
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,9 @@
 * 16-bit is IEEE fp16 without scales; 32-bit is plain fp32.
 
 Containers are frozen dataclasses of tensors.  A container lives on the
-device of its tensors; ops run where their inputs are.
+device of its tensors; ops run where their inputs are.  A *stacked* vector
+container holds B vectors: its tensors carry a leading batch dim and
+``length`` is each vector's (:func:`stack_vectors`, :func:`vector_at`).
 """
 
 from __future__ import annotations
@@ -255,6 +257,29 @@ def to_device(q, device):
     """Copy of container ``q`` with every tensor moved to ``device``."""
     return dataclasses.replace(q, **{
         f.name: getattr(q, f.name).to(device)
+        for f in dataclasses.fields(q)
+        if isinstance(getattr(q, f.name), torch.Tensor)})
+
+
+def stack_vectors(vecs):
+    """Stack vector containers of one type and length into one container
+    whose tensors carry a leading batch dim: codes ``(B, w)``, scales
+    ``(B, nb)`` (the counterpart of ``jax.tree.map(jnp.stack, ...)``)."""
+    first = vecs[0]
+    for v in vecs[1:]:
+        if type(v) is not type(first) or v.length != first.length:
+            raise TypeError(f"cannot stack {type(v).__name__}({v.length}) "
+                            f"with {type(first).__name__}({first.length})")
+    return dataclasses.replace(first, **{
+        f.name: torch.stack([getattr(v, f.name) for v in vecs])
+        for f in dataclasses.fields(first)
+        if isinstance(getattr(first, f.name), torch.Tensor)})
+
+
+def vector_at(q, j: int):
+    """Vector ``j`` of a stacked container, as views of its rows."""
+    return dataclasses.replace(q, **{
+        f.name: getattr(q, f.name)[j]
         for f in dataclasses.fields(q)
         if isinstance(getattr(q, f.name), torch.Tensor)})
 

@@ -8,8 +8,10 @@ take it for CPU tensors only.  Nothing here builds or loads CUDA code at
 import time.
 """
 
+from .axpy import axpy_cuda
 from .dispatch import SEED_GOLD, SEED_OP, on_cuda, seed_from, wrap_i32
 from .mvm import axpy_plain, mvm4_cuda, mvm4_plain, mvm8_cuda, mvm8_plain
+from .mvm_batched import MAX_BATCH, mvm_batched_cuda, mvm_batched_plain
 from .quantize import (
     quantize_mat_cuda, quantize_mat_plain, quantize_vec_cuda,
     quantize_vec_plain,
@@ -33,6 +35,8 @@ KERNELS = {
     "transpose8": transpose8_cuda,
     "mvm8": mvm8_cuda,
     "threshold8": threshold8_cuda,
+    "axpy": axpy_cuda,
+    "mvm_batched": mvm_batched_cuda,
 }
 
 
@@ -53,7 +57,9 @@ __all__ = [
     "restore_vec_cuda", "restore_vec_plain",
     "transpose4_cuda", "transpose4_plain",
     "transpose8_cuda", "transpose8_plain",
-    "mvm4_cuda", "mvm4_plain", "mvm8_cuda", "mvm8_plain", "axpy_plain",
+    "mvm4_cuda", "mvm4_plain", "mvm8_cuda", "mvm8_plain",
+    "axpy_cuda", "axpy_plain",
+    "MAX_BATCH", "mvm_batched_cuda", "mvm_batched_plain",
     "threshold4_cuda", "threshold4_plain",
     "threshold8_cuda", "threshold8_plain",
 ]

@@ -38,7 +38,10 @@ SIGNATURES = {
     "clover_transpose": (_P, _P, _I64, _I64, _I32, _P),
     "clover_mvm": (_P, _P, _P, _P, _P, _P, _F32, _P, _P, _I64, _I64,
                    _I32, _I32, _I32, _U32, _I32, _U32, _P),
-    "clover_threshold": (_P, _P, _P, _I64, _I64, _I32, _P),
+    "clover_threshold": (_P, _P, _P, _I64, _I64, _I32, _I64, _P),
+    "clover_axpy": (_P, _P, _P, _P, _F32, _P, _P, _I64, _I32, _I32, _U32, _P),
+    "clover_mvm_batched": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
+                           _I32, _I32, _U32, _P),
 }
 
 

@@ -6,6 +6,11 @@ threshold8_pallas.  Every form keeps the k largest |code * (s/qmax)| of a
 ascending), zeros the other codes, and returns the new codes; scales are
 the caller's, untouched.  The kernel needs no length: padding codes are
 zero, so keeping or dropping a padding tie writes the same byte.
+
+Every form also takes a stacked batch, ``(B, w)`` codes and ``(B, nb)``
+scales, and thresholds each row on its own (clover_tpu vmaps the threshold
+over a batch): the kernel in one launch of B CTAs, the plain versions row
+by row.
 """
 
 from __future__ import annotations
@@ -32,8 +37,14 @@ def golden_keep(values: torch.Tensor, k: int,
     return keep
 
 
+def _rows(plain, codes, scales, *args):
+    return torch.stack([plain(c, s, *args) for c, s in zip(codes, scales)])
+
+
 def threshold4_plain(codes: torch.Tensor, scales: torch.Tensor,
                      k: int) -> torch.Tensor:
+    if codes.dim() == 2:
+        return _rows(threshold4_plain, codes, scales, k)
     c = unpack_nibbles(codes)
     m7 = _core.div(scales, 7.0).repeat_interleave(BLOCK)
     keep = golden_keep(c.abs().to(torch.float32) * m7, k)
@@ -42,6 +53,8 @@ def threshold4_plain(codes: torch.Tensor, scales: torch.Tensor,
 
 def threshold8_plain(codes: torch.Tensor, scales: torch.Tensor, k: int,
                      length: int) -> torch.Tensor:
+    if codes.dim() == 2:
+        return _rows(threshold8_plain, codes, scales, k, length)
     av = codes.to(torch.float32).abs() * _core.expand_vec_scales(scales, 8)
     keep = golden_keep(av, k, length)
     return torch.where(keep, codes, torch.zeros_like(codes))
@@ -49,18 +62,23 @@ def threshold8_plain(codes: torch.Tensor, scales: torch.Tensor, k: int,
 
 def _launch(codes: torch.Tensor, scales: torch.Tensor, k: int,
             bits: int) -> torch.Tensor:
-    (wb,) = codes.shape
+    *lead, wb = codes.shape
+    if len(lead) > 1 or lead == [0]:
+        raise ValueError(f"codes {tuple(codes.shape)}: expected (w,) or "
+                         f"(B, w) with B >= 1")
     n_pad = wb * 8 // bits
     if n_pad % 128:
         raise ValueError(f"codes {tuple(codes.shape)} not padded to 128")
     if not 0 <= k < 2 ** 31:
         raise ValueError(f"k={k} out of range")
-    _build.check(codes, (wb,), torch.int8, "codes")
-    _build.check(scales, (n_pad // BLOCK,), torch.float32, "scales",
+    _build.check(codes, (*lead, wb), torch.int8, "codes")
+    _build.check(scales, (*lead, n_pad // BLOCK), torch.float32, "scales",
                  codes.device)
+    batch = lead[0] if lead else 1
     out = torch.empty_like(codes)
     _build.launch("clover_threshold", codes.device, _build.ptr(codes),
-                  _build.ptr(scales), _build.ptr(out), n_pad, int(k), bits)
+                  _build.ptr(scales), _build.ptr(out), n_pad, int(k), bits,
+                  batch)
     return out
 
 

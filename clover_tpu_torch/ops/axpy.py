@@ -1,9 +1,12 @@
 """scaleAndAdd: ``r = quantize(restore(u) + a*restore(v))`` blockwise
 (counterpart of clover_tpu/ops/axpy.py).
 
-Plain only.  On the solver path the AXPY runs as the epilogue of the fused
-MVM kernel (ops/mvm.py mvm_axpy); the standalone AXPY kernel is not ported
-yet, so 4/8-bit operands on CUDA raise.
+4- and 8-bit operands run the AXPY kernel on CUDA tensors and its plain
+version on CPU tensors; 16/32-bit are plain torch.  Stacked containers
+(leading batch dim) go through as one flat vector of ``B * n_pad``
+elements: deterministic results equal the per-row ones, and the SR noise
+counters run over the flat index, so each row draws its own noise (where
+clover_tpu's vmap shares one draw across the batch).
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..formats import QVec16, QVec32
+from ..kernels.axpy import axpy_cuda
 from ..kernels.dispatch import on_cuda, seed_from
 from ..kernels.mvm import axpy_plain
 from .quantize import restore_vec
@@ -27,10 +31,13 @@ def scale_and_add(u, v, a, generator=None):
         if isinstance(u, QVec32):
             return QVec32(values=x, length=u.length)
         return QVec16(values=x.to(torch.float16), length=u.length)
-    if on_cuda(u.codes, v.codes):
-        raise NotImplementedError("the standalone AXPY kernel is not ported "
-                                  "yet (ROADMAP.md queue 2); use mvm_axpy")
+    if u.codes.shape != v.codes.shape:
+        raise ValueError(f"shape mismatch: {tuple(u.codes.shape)} vs "
+                         f"{tuple(v.codes.shape)}")
+    fn = axpy_cuda if on_cuda(u.codes, v.codes) else axpy_plain
     seed, noise = seed_from(generator)
-    codes, scales = axpy_plain(u.codes, u.scales, v.codes, v.scales, a,
-                               u.bits, seed, noise)
-    return type(u)(codes=codes, scales=scales, length=u.length)
+    codes, scales = fn(u.codes.reshape(-1), u.scales.reshape(-1),
+                       v.codes.reshape(-1), v.scales.reshape(-1), a, u.bits,
+                       seed, noise)
+    return type(u)(codes=codes.reshape(u.codes.shape),
+                   scales=scales.reshape(u.scales.shape), length=u.length)

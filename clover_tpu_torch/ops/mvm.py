@@ -29,10 +29,15 @@ def mvm_f32(A, x) -> torch.Tensor:
     """y = A @ x as a padded f32 tensor, no output requantization.
 
     Plain torch on any device; the independent reference for the kernel
-    (its block sums use torch's order, not the kernel's)."""
+    (its block sums use torch's order, not the kernel's).  An int matrix
+    times an f32 vector goes through ``gemm_f32``, as in clover_tpu, so no
+    restored copy of A is formed."""
     if isinstance(A, _INT_MATS) and isinstance(x, _INT_VECS):
         return blocked_products(A.codes, A.scales, x.codes, x.scales,
                                 A.bits, x.bits).sum(dim=1)
+    if isinstance(A, _INT_MATS) and isinstance(x, QVec32):
+        from .gemm import gemm_f32
+        return gemm_f32(A, x.values[:, None])[:, 0]
     af = A.values.to(torch.float32) if isinstance(A, (QMat16, QMat32)) \
         else restore_mat(A).values
     xf = x.values.to(torch.float32) if isinstance(x, (QVec16, QVec32)) \

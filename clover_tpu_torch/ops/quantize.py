@@ -74,13 +74,16 @@ def quantize_mat(a, bits: int, generator=None):
 
 
 def restore_vec(q) -> QVec32:
-    """Quantized vector -> fp32 container."""
+    """Quantized vector -> fp32 container; a stacked container restores in
+    one flat pass over its ``B * n_pad`` elements (blocks are contiguous)."""
     if isinstance(q, QVec32):
         return q
     if isinstance(q, QVec16):
         return QVec32(values=q.values.to(torch.float32), length=q.length)
     fn = restore_vec_cuda if on_cuda(q.codes) else restore_vec_plain
-    return QVec32(values=fn(q.codes, q.scales, q.bits), length=q.length)
+    values = fn(q.codes.reshape(-1), q.scales.reshape(-1), q.bits)
+    return QVec32(values=values.reshape(*q.codes.shape[:-1], -1),
+                  length=q.length)
 
 
 def restore_mat(q) -> QMat32:

@@ -4,8 +4,10 @@
 Selection is exact, in golden order: |value| descending, then index
 ascending.  Scales are never touched.  4- and 8-bit run the threshold
 kernel on CUDA and its plain version on the CPU; one kernel serves every
-length.  16/32-bit are plain and CPU only for now (clover_tpu computes
-them in XLA, with no Pallas kernel).
+length, and a stacked 4/8-bit container (leading batch dim) thresholds
+each row in the same launch, the counterpart of ``jax.vmap(threshold)``
+in clover_tpu/models/batch.py.  16/32-bit are plain and CPU only for now
+(clover_tpu computes them in XLA, with no Pallas kernel).
 """
 
 from __future__ import annotations

@@ -97,7 +97,8 @@ def test_to_device_copies_every_tensor():
 
 def test_import_leaves_jax_out():
     """Importing the port never imports jax or clover_tpu."""
-    code = ("import sys, clover_tpu_torch, clover_tpu_torch.kernels; "
+    code = ("import sys, clover_tpu_torch, clover_tpu_torch.kernels, "
+            "clover_tpu_torch.serving, clover_tpu_torch.models.batch; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'clover_tpu.')) or m == 'clover_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -136,9 +137,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """A kernel wrapper never computes on the CPU: it checks its operands
     before it builds or launches anything."""
     from clover_tpu_torch.kernels import (
-        mvm4_cuda, mvm8_cuda, quantize_mat_cuda, quantize_vec_cuda,
-        restore_vec_cuda, threshold4_cuda, threshold8_cuda, transpose4_cuda,
-        transpose8_cuda)
+        axpy_cuda, mvm4_cuda, mvm8_cuda, mvm_batched_cuda, quantize_mat_cuda,
+        quantize_vec_cuda, restore_vec_cuda, threshold4_cuda,
+        threshold8_cuda, transpose4_cuda, transpose8_cuda)
     q = tt.quantize(torch.ones(128, 256), 4)
     x = tt.quantize(torch.ones(256), 4)
     q8 = tt.quantize(torch.ones(128, 256), 8)
@@ -153,7 +154,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
              lambda: threshold4_cuda(x.codes, x.scales, 3),
              lambda: threshold8_cuda(x8.codes, x8.scales, 3),
              lambda: restore_vec_cuda(x.codes, x.scales, 4),
-             lambda: restore_vec_cuda(x8.codes, x8.scales, 8)]
+             lambda: restore_vec_cuda(x8.codes, x8.scales, 8),
+             lambda: axpy_cuda(x.codes, x.scales, x.codes, x.scales, 0.5, 4),
+             lambda: axpy_cuda(x8.codes, x8.scales, x8.codes, x8.scales,
+                               0.5, 8),
+             lambda: threshold4_cuda(x.codes[None], x.scales[None], 3),
+             lambda: mvm_batched_cuda(4, 4, q.codes, q.scales, x.codes[None],
+                                      x.scales[None]),
+             lambda: mvm_batched_cuda(8, 8, q8.codes, q8.scales,
+                                      x8.codes[None], x8.scales[None])]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
@@ -162,14 +171,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 def test_build_finds_sources_and_refuses_without_nvcc(monkeypatch, tmp_path):
     from clover_tpu_torch.kernels import _build
     names = sorted(p.name for p in _build._sources())
-    assert names == ["mvm.cu", "quantize.cu", "restore.cu", "threshold.cu",
-                     "transpose.cu"]
+    assert names == ["axpy.cu", "mvm.cu", "mvm_batched.cu", "quantize.cu",
+                     "restore.cu", "threshold.cu", "transpose.cu"]
     assert len(_build._digest()) == 16 and _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert set(_build.SIGNATURES) == {
         "clover_quantize_vec", "clover_quantize_mat", "clover_restore_vec",
-        "clover_transpose", "clover_mvm", "clover_threshold"}
+        "clover_transpose", "clover_mvm", "clover_threshold", "clover_axpy",
+        "clover_mvm_batched"}
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):

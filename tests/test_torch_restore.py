@@ -56,8 +56,9 @@ def test_restore_vec_plain_op_order(rng):
 @pytest.mark.parametrize("bits", [4, 8])
 def test_cuda_routes_reach_the_kernels(monkeypatch, bits):
     """With operands taken for CUDA ones, each op of the traced solve
-    reaches its kernel wrapper (which refuses the CPU tensors); matrix
-    restore and the standalone AXPY raise, naming ROADMAP queue 2."""
+    reaches its kernel wrapper (which refuses the CPU tensors), the
+    standalone AXPY included; matrix restore raises, naming ROADMAP
+    queue 2."""
     A = tt.quantize(torch.ones(128, 256), bits)
     x = tt.quantize(torch.ones(256), 8)
     u = tt.quantize(torch.ones(128), 8)
@@ -67,11 +68,10 @@ def test_cuda_routes_reach_the_kernels(monkeypatch, bits):
         monkeypatch.setattr(mod, "on_cuda", lambda *t: True)
     calls = [lambda: tt.restore_vec(v), lambda: tt.transpose(A),
              lambda: tt.threshold(v, 3), lambda: tt.mvm(A, x),
-             lambda: tt.mvm_axpy(A, x, u, -1.0)]
+             lambda: tt.mvm_axpy(A, x, u, -1.0),
+             lambda: tt.scale_and_add(v, v, 0.5)]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
             call()
     with pytest.raises(NotImplementedError, match="queue 2"):
         tt.restore_mat(A)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        tt.scale_and_add(v, v, 0.5)
