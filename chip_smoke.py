@@ -20,7 +20,17 @@ and, on the batching and serving path:
   the batch per iteration), traced and untraced;
 - an MVMServer on a resident 16384x16384 matrix answering bursts of
   requests from 4 client threads: 4-bit matrix with 4-bit and 8-bit
-  requests (modes 4x4, 4x8), 8-bit matrix with 8-bit requests (8x8).
+  requests (modes 4x4, 4x8), 8-bit matrix with 8-bit requests (8x8);
+
+and, on the small-problem path (both padded sides multiples of 512, at
+most 8192), where a 4x4 or 4x8 iteration is one whole-iteration launch
+and an untraced solve one chained launch per 4 iterations:
+
+- IHT at 4096x8192 and 2048x4096 (K = n/4, the tuned mu), 4x4 and 4x8,
+  100 iterations untraced and traced;
+- the accuracy protocol, ``python -m clover_tpu_torch -a``: the
+  reference's 512x1024 instance, K=64, 200 epochs, five precisions,
+  deterministic and SR.
 
 Phases, each of which raises on failure:
 
@@ -34,8 +44,12 @@ Phases, each of which raises on failure:
    the fused mvm_axpy; the batched MVM bit-identical to per-vector plain
    MVMs with seeds seed + j (16384x16384 at B = 2, 3, 8, 32; 8192x16384
    at B = 8; 200x300 at B = 3); the batched threshold bit-identical to
-   per-row plain ones; device times by CUDA events (median of 5 windows
-   of 20 back-to-back launches queued behind a spin kernel; plain
+   per-row plain ones; the whole-iteration and chained kernels (4x4,
+   4x8; 4096x8192, 2048x4096, 512x1024; chains of 4 with k = n/4 and
+   GD) bit-identical to their plain versions and to the unfused kernel
+   sequence, at grids 1, 7 and the default; device times by CUDA events
+   (median of 5
+   windows of 20 back-to-back launches queued behind a spin kernel; plain
    versions 3 single calls), and the batched MVM's per-vector time at
    B = 1 ... 32 against single-kernel calls;
 3. the main paths through the public entry points: Phi and y quantized
@@ -50,11 +64,25 @@ Phases, each of which raises on failure:
    bit-identical to 8 single solves, problem-iterations/s beside the
    single solves';
 6. the server: every result bit-identical to ``tt.mvm``, batched-kernel
-   launches in every mode, requests/s and p50/p99 latency.
+   launches in every mode, requests/s and p50/p99 latency;
+7. the small IHT: exact launch counts (an untraced 100-iteration solve is
+   25 chained launches and nothing else; a traced one an iteration, a
+   threshold and a restore per iteration), the chained, traced and
+   unfused solves bit-identical, the error after the tuned iteration
+   count below 1.0, iterations/s by host clock and CUDA events beside
+   the unfused kernel sequence, with the device's busy share;
+8. ``-a`` through the CLI, deterministic then SR: exact launch counts
+   (200 whole-iteration launches in each of the 4 and 4x8
+   configurations), every deterministic final error below 1.0, the SR
+   finals printed beside them, and the deterministic 4 and 4x8 traces
+   against the plain versions' on the card within 1e-6.
 
-The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.  Without a CUDA device it prints no
-result and exits 2.
+The line before the last is ``{"kernels": [...]}``, each kernel with its
+bound: the larger of its bytes (every input read once, every output
+written once) over the card's memory rate and its int8 operations over
+the int8 peak (NVIDIA's data sheet); the last is ``{"ok": true,
+"device": {...}}``.  Without a CUDA device it prints no result and exits
+2.
 """
 
 from __future__ import annotations
@@ -83,6 +111,11 @@ SPIN_CYCLES = 1 << 23         # ~4-5 ms at the H100's clocks: time enough to
                               # enqueue 20 kernel calls or one plain call
 CONFIGS = ("4", "4x8", "8")
 TRACED = {"4": False, "4x8": True, "8": True}
+SMALL = ((4096, 8192), (2048, 4096), (512, 1024))  # whole-iteration sizes
+SMALL_SOLVES = SMALL[:2]      # bench.py's small IHT sizes
+CHAIN = 4                     # iterations per chained launch (the solver's)
+EPOCHS = 200                  # the accuracy protocol's
+INT8_OPS = 1979e12            # H100 SXM int8 tensor-core peak, ops/s
 
 # kernel -> (CUDA source, pallas_call it replaces)
 KERNEL_INFO = {
@@ -106,6 +139,10 @@ KERNEL_INFO = {
              "clover_tpu/kernels/quantize.py:371"),
     "mvm_batched": ("clover_tpu_torch/csrc/mvm_batched.cu",
                     "clover_tpu/kernels/mvm_batched.py:314"),
+    "iteration": ("clover_tpu_torch/csrc/iteration.cu",
+                  "clover_tpu/kernels/iteration.py:311"),
+    "iteration_chain": ("clover_tpu_torch/csrc/iteration.cu",
+                        "clover_tpu/kernels/iteration.py:549"),
 }
 
 
@@ -166,13 +203,32 @@ def dequant(codes, scales, bits: int = 4):
     return c * s
 
 
+@functools.cache
+def hbm_rate() -> float:
+    """The card's memory rate from its data sheet, by device name."""
+    import torch
+    from clover_tpu_torch.harness.sysinfo import hbm_spec
+    name = torch.cuda.get_device_name(0)
+    rate = hbm_spec(name)
+    if rate is None:
+        raise RuntimeError(f"no memory rate known for {name}")
+    return rate
+
+
+def qbytes(n: int, bits: int) -> int:
+    """Bytes of n quantized elements with their 64-block scales."""
+    return n * bits // 8 + n // 16
+
+
 class Report:
-    """Per-kernel comparison results and times."""
+    """Per-kernel comparison results, times and bounds."""
 
     def __init__(self):
         self.err = {name: 0.0 for name in KERNEL_INFO}
         self.ms = {}
         self.plain_ms = {}
+        self.bound = {}      # name -> (ms, "bytes" or "operations")
+        self.library_ms = dict.fromkeys(KERNEL_INFO)
         self.leg_ms = {}     # (mode, leg) -> kernel ms of an MVM+AXPY leg
         self.sweep = {}      # B -> batched MVM ms, 4x4 at NS x NS
 
@@ -207,11 +263,23 @@ class Report:
             (dequant(gc, gs, bits) - dequant(wc, ws, bits)).abs().max()))
         print(f"  {name:13s} {what:40s} max {lsb} LSB, scale rtol {rel:.3g}")
 
-    def time(self, name: str, kernel, plain):
+    def time(self, name: str, kernel, plain, nbytes: int, ops: float = 0.0,
+             library=None):
+        """Kernel and plain times of one call; its bound from the bytes it
+        must move and the int8 operations it must do; ``library``, one
+        PyTorch call computing the same function, timed as the kernel."""
         self.ms[name] = median_ms(kernel, 5, 20)
         self.plain_ms[name] = median_ms(plain, 3, 1)
+        by_bytes, by_ops = nbytes / hbm_rate() * 1e3, ops / INT8_OPS * 1e3
+        self.bound[name] = ((by_bytes, "bytes") if by_bytes >= by_ops
+                            else (by_ops, "operations"))
+        lib = ""
+        if library is not None:
+            self.library_ms[name] = median_ms(library, 5, 20)
+            lib = f"   library {self.library_ms[name]:.4f} ms"
         print(f"  {name:13s} kernel {self.ms[name]:.4f} ms   plain "
-              f"{self.plain_ms[name]:.4f} ms")
+              f"{self.plain_ms[name]:.4f} ms   bound "
+              f"{self.bound[name][0]:.4f} ms ({self.bound[name][1]}){lib}")
 
     def time_leg(self, mode: str, leg: str, kernel):
         self.leg_ms[mode, leg] = median_ms(kernel, 5, 20)
@@ -263,9 +331,10 @@ def check_quantize(rep: Report, phi, y, xf, modes):
                           quantize_vec_cuda(v, bits, seed, noise),
                           quantize_vec_plain(v, bits, seed, noise), bits)
     rep.time("quantize_mat", lambda: quantize_mat_cuda(phi, 4, 1, True),
-             lambda: quantize_mat_plain(phi, 4, 1, True))
+             lambda: quantize_mat_plain(phi, 4, 1, True),
+             4 * M * N + M * N // 2 + 4 * (M // 64) * (N // 64))
     rep.time("quantize_vec", lambda: quantize_vec_cuda(y, 4, 1, True),
-             lambda: quantize_vec_plain(y, 4, 1, True))
+             lambda: quantize_vec_plain(y, 4, 1, True), 4 * M + qbytes(M, 4))
 
 
 def check_transpose(rep: Report, qphi):
@@ -279,7 +348,11 @@ def check_transpose(rep: Report, qphi):
         st = q.scales.T.contiguous()
         phit[bits] = (cuda(q.codes), st)
         rep.exact(name, f"{M}x{N}", phit[bits], (plain(q.codes), st), bits)
-        rep.time(name, lambda: cuda(q.codes), lambda: plain(q.codes))
+        # 8-bit codes transpose as a byte matrix: one torch call does it
+        rep.time(name, lambda: cuda(q.codes), lambda: plain(q.codes),
+                 2 * M * N * bits // 8,
+                 library=(lambda: q.codes.t().contiguous()) if bits == 8
+                 else None)
     return phit
 
 
@@ -310,8 +383,12 @@ def check_mvm(rep: Report, qphi, phit, qy, qx, modes):
         # the per-kernel time is the Phi leg of its heaviest mode (8x8 for
         # mvm8); every leg's time is printed
         if mode != "4x8":
+            bits_out = 4 if bits_x == 4 else 8
             rep.time(name, lambda: cuda(*leg1, 1, True, 2, True),
-                     lambda: plain(*leg1, 1, True, 2, True))
+                     lambda: plain(*leg1, 1, True, 2, True),
+                     M * N * bits_a // 8 + 4 * (M // 64) * (N // 64)
+                     + qbytes(N, bits_x) + 2 * qbytes(M, bits_out),
+                     ops=2 * M * N)
         rep.time_leg(mode, "Phi", lambda: cuda(*leg1, 1, True, 2, True))
         rep.time_leg(mode, "PhiT", lambda: cuda(*leg2, 1, True, 2, True))
     return iterates
@@ -344,7 +421,8 @@ def check_threshold(rep: Report, iterates, xf, gen):
             for k in (K, 1, 0):
                 rep.exact(name, f"n={N} k={k} {what}",
                           (cuda(c, s, k), s), (plain(c, s, k), s), bits)
-        rep.time(name, lambda: cuda(*it, K), lambda: plain(*it, K))
+        rep.time(name, lambda: cuda(*it, K), lambda: plain(*it, K),
+                 qbytes(N, bits) + N * bits // 8)
 
 
 def check_restore(rep: Report, y, xf, gen):
@@ -359,7 +437,8 @@ def check_restore(rep: Report, y, xf, gen):
                           restore_vec_plain(q.codes, q.scales, bits))
     q = tt.quantize(xf, 8)
     rep.time("restore_vec", lambda: restore_vec_cuda(q.codes, q.scales, 8),
-             lambda: restore_vec_plain(q.codes, q.scales, 8))
+             lambda: restore_vec_plain(q.codes, q.scales, 8),
+             qbytes(N, 8) + 4 * N)
 
 
 def check_ragged(rep: Report, gen, modes):
@@ -450,7 +529,8 @@ def check_axpy(rep: Report, gen, qphi, qy, qx, modes):
                       (two.codes, two.scales), (fused.codes, fused.scales),
                       bits_x)
     args = (*stacked[4], -0.73, 4, 1, True)
-    rep.time("axpy", lambda: axpy_cuda(*args), lambda: axpy_plain(*args))
+    rep.time("axpy", lambda: axpy_cuda(*args), lambda: axpy_plain(*args),
+             3 * BATCH * qbytes(N, 4))
 
 
 def stacked_requests(gen, count: int, n: int, bits: int):
@@ -494,7 +574,9 @@ def check_mvm_batched(rep: Report, gen, qphi, mats, modes):
     args = (4, 4, a.codes, a.scales, x.codes[:BATCH], x.scales[:BATCH], 1,
             True)
     rep.time("mvm_batched", lambda: mvm_batched_cuda(*args),
-             lambda: mvm_batched_plain(*args))
+             lambda: mvm_batched_plain(*args),
+             M * N // 2 + 4 * (M // 64) * (N // 64)
+             + BATCH * (qbytes(N, 4) + qbytes(M, 4)), ops=2 * M * N * BATCH)
     a = mats[4]
     single = median_ms(lambda: mvm4_cuda(a.codes, a.scales, x.codes[0],
                                          x.scales[0], seed1=1, noise1=True),
@@ -540,6 +622,99 @@ def check_threshold_batched(rep: Report, gen):
               f"{ms:.4f} ms")
 
 
+def small_problem(gen, m: int, n: int, bits_x: int):
+    """(Phi, PhiT, y, x) operand pairs of an m x n 4-bit problem with
+    bits_x-bit y and x: Phi quantized with SR, x a dense iterate."""
+    import torch
+    import clover_tpu_torch as tt
+    dev = gen.device
+    q = tt.quantize(torch.rand(m, n, generator=gen, device=dev) * 2 - 1, 4,
+                    generator=gen)
+    qy = tt.quantize(torch.rand(m, generator=gen, device=dev) * 2 - 1, bits_x)
+    qx = tt.quantize(torch.randn(n, generator=gen, device=dev), bits_x)
+    return [(v.codes, v.scales) for v in (q, tt.transpose(q), qy, qx)]
+
+
+def unfused_chain(bits_x: int, ops, mu: float, k, seeds, noise: bool):
+    """The chain's iterations through the MVM and threshold kernels."""
+    from clover_tpu_torch import kernels as kn
+    cuda = mvm_forms(4, bits_x)[0]
+    phi, phit, y, x = ops
+    for it in range(len(seeds) // 4):
+        s = seeds[4 * it:4 * it + 4]
+        t2 = cuda(*phi, *x, *y, -1.0, s[0], noise, s[1], noise)
+        x = cuda(*phit, *t2, *x, mu, s[2], noise, s[3], noise)
+        if k is not None:
+            thr = kn.threshold4_cuda if bits_x == 4 else kn.threshold8_cuda
+            x = thr(*x, k), x[1]
+    return x
+
+
+def check_iteration(rep: Report, gen, modes):
+    """The whole-iteration and chained kernels against their plain
+    versions and the unfused kernel sequence, at grids 1, 7 and the
+    default (min(bands, co-resident CTAs))."""
+    from clover_tpu_torch.kernels import iteration as it
+    mu = 0.0005050158681869508   # the tuned 4-bit mu at 4096x8192
+    print("  iteration     co-resident CTAs (occupancy x SMs): " + ", ".join(
+        f"4x{bx} {'chain' if chained else 'whole'} "
+        f"{it.co_resident(0, 4, bx, chained)}"
+        for bx in (4, 8) for chained in (False, True)))
+    for m, n in SMALL:
+        for bits_x in (4, 8):
+            ops = small_problem(gen, m, n, bits_x)
+            mode = f"4x{bits_x} {m}x{n}"
+            for what, seed, noise in modes:
+                seeds = [seed + 17 * j for j in range(4 * CHAIN)]
+                flags = (noise,) * 4
+                want = it.iteration_plain(4, bits_x, *ops, mu, seeds[:4],
+                                          flags)
+                for grid in (None, 1, 7):
+                    rep.exact("iteration", f"{mode} grid={grid} {what}",
+                              it.iteration_cuda(4, bits_x, *ops, mu,
+                                                seeds[:4], flags, grid=grid),
+                              want, bits_x)
+                rep.exact("iteration", f"{mode} = unfused {what}", want,
+                          unfused_chain(bits_x, ops, mu, None, seeds[:4],
+                                        noise), bits_x)
+                for k in (n // 4, None):
+                    got = it.iteration_chain_cuda(4, bits_x, *ops, mu, k,
+                                                  seeds, flags)
+                    rep.exact("iteration_chain", f"{mode} k={k} {what}", got,
+                              it.iteration_chain_plain(4, bits_x, *ops, mu, k,
+                                                       seeds, flags), bits_x)
+                    rep.exact("iteration_chain", f"{mode} k={k} = unfused "
+                              f"{what}", got, unfused_chain(
+                                  bits_x, ops, mu, k, seeds, noise), bits_x)
+            one = median_ms(lambda: it.iteration_cuda(
+                4, bits_x, *ops, mu, [1, 2, 3, 4], (True,) * 4), 5, 20)
+            chain = median_ms(lambda: it.iteration_chain_cuda(
+                4, bits_x, *ops, mu, n // 4, list(range(4 * CHAIN)),
+                (True,) * 4), 5, 20)
+            legs = median_ms(lambda: unfused_chain(
+                bits_x, ops, mu, n // 4, [1, 2, 3, 4], True), 5, 20)
+            print(f"  iteration     4x{bits_x} {m}x{n} SR: whole iteration "
+                  f"{one:.4f} ms, chain of {CHAIN} {chain:.4f} ms "
+                  f"({chain / CHAIN:.4f} per iteration), unfused legs + "
+                  f"threshold {legs:.4f} ms")
+            if (m, n, bits_x) == (*SMALL[0], 4):
+                pair = 2 * (m * n // 2 + 4 * (m // 64) * (n // 64))
+                vecs = qbytes(m, 4) + 2 * qbytes(n, 4)
+                rep.time("iteration", lambda: it.iteration_cuda(
+                    4, 4, *ops, mu, [1, 2, 3, 4], (True,) * 4),
+                    lambda: it.iteration_plain(4, 4, *ops, mu, [1, 2, 3, 4],
+                                               (True,) * 4),
+                    pair + vecs, ops=4 * m * n)
+                # every input read once (the pair fits in the 50 MB L2)
+                rep.time("iteration_chain", lambda: it.iteration_chain_cuda(
+                    4, 4, *ops, mu, n // 4, list(range(4 * CHAIN)),
+                    (True,) * 4),
+                    lambda: it.iteration_chain_plain(
+                        4, 4, *ops, mu, n // 4, list(range(4 * CHAIN)),
+                        (True,) * 4),
+                    pair + vecs, ops=4 * m * n * CHAIN)
+
+
 def phase_kernels(rep: Report, phi, mats, gen):
     """Every kernel against its plain version, on the main paths' shapes."""
     import torch
@@ -562,13 +737,14 @@ def phase_kernels(rep: Report, phi, mats, gen):
     check_axpy(rep, gen, qphi, qy, qx, modes)
     check_mvm_batched(rep, gen, qphi, mats, modes)
     check_threshold_batched(rep, gen)
+    check_iteration(rep, gen, modes)
 
 
 def recovery_error(x, x_star) -> float:
     """||restore(x) - x*|| / ||x*||, restored on the host."""
     import torch
     import clover_tpu_torch as tt
-    xr = tt.restore(tt.to_device(x, "cpu")).values[:N]
+    xr = tt.restore(tt.to_device(x, "cpu")).values[:x_star.shape[0]]
     xs = x_star.cpu()
     return float(torch.linalg.norm(xr - xs) / torch.linalg.norm(xs))
 
@@ -894,6 +1070,212 @@ def phase_server(mats, gen):
     return totals
 
 
+def small_config(name: str, m: int, n: int):
+    """-> (y/x bits, tuned iterations, mu, K) of the 4 or 4x8 tuned IHT."""
+    from clover_tpu_torch.models import tuned
+    table = tuned.IHT_4BIT if name == "4" else tuned.IHT_MIXED_4X8
+    row = table[(m, n)]
+    return (4 if name == "4" else 8), row["iters"], row["mu"], row["K"]
+
+
+def unfused_iht(qphi, qphit, qy, iters: int, k: int, mu: float):
+    """The deterministic IHT through the public fused MVM+AXPY and threshold
+    ops: two MVM launches and one threshold launch per iteration."""
+    import clover_tpu_torch as tt
+    x = tt.zeros_vector(qy.bits, qphi.cols, device=qy.codes.device)
+    for _ in range(iters):
+        t2 = tt.mvm_axpy(qphi, x, qy, -1.0)
+        x = tt.threshold(tt.mvm_axpy(qphit, t2, x, mu), k)
+    return x
+
+
+def launched(fn, expected: dict):
+    """Run ``fn`` with every count at 0; raise unless the counts are
+    ``expected`` (absent kernels 0); -> (fn's result, the counts)."""
+    import torch
+    from clover_tpu_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = dict.fromkeys(KERNEL_INFO, 0) | expected
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    return out, counts
+
+
+def same(a, b) -> bool:
+    import torch
+    return torch.equal(a.codes, b.codes) and torch.equal(a.scales, b.scales)
+
+
+def phase_small_iht():
+    """The small IHT through ``tt.iht``: chained untraced, whole-iteration
+    traced, against the unfused ops; -> the launch counts of its runs."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch.kernels import iteration as it
+    totals = dict.fromkeys(KERNEL_INFO, 0)
+    print(f"== 7. small IHT: whole-iteration and chained kernels, "
+          f"{TIMED_ITERS} iterations")
+    for m, n in SMALL_SOLVES:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        phi, x_star, y = tt.make_iht_problem(m, n, n // 4, generator=gen)
+        xs = tt.QVec32(values=x_star, length=n)
+        for name in ("4", "4x8"):
+            bits, iters, mu, k = small_config(name, m, n)
+            qphi = tt.quantize(phi, 4, generator=gen)
+            qphit = tt.transpose(qphi)
+            qy = tt.quantize(y, bits, generator=gen)
+            thr = f"threshold{bits}"
+            chained, c1 = launched(
+                lambda: tt.iht(qphi, qphit, qy, TIMED_ITERS, k, mu),
+                {"iteration_chain": TIMED_ITERS // CHAIN})
+            traced, c2 = launched(
+                lambda: tt.iht(qphi, qphit, qy, TIMED_ITERS, k, mu,
+                               x_star=xs),
+                {"iteration": TIMED_ITERS, thr: TIMED_ITERS,
+                 "restore_vec": TIMED_ITERS})
+            tuned, c3 = launched(
+                lambda: tt.iht(qphi, qphit, qy, iters, k, mu, x_star=xs),
+                {"iteration": iters, thr: iters, "restore_vec": iters})
+            unfused, c4 = launched(
+                lambda: unfused_iht(qphi, qphit, qy, TIMED_ITERS, k, mu),
+                {f"mvm{bits}": 2 * TIMED_ITERS, thr: TIMED_ITERS})
+            for c in (c1, c2, c3, c4):
+                for kname, count in c.items():
+                    totals[kname] += count
+            if not (same(chained.x, traced.x) and same(chained.x, unfused)):
+                raise AssertionError(f"4x{bits} {m}x{n}: chained, traced and "
+                                     f"unfused solves differ")
+            err = recovery_error(tuned.x, x_star)
+            last = float(tuned.trace[-1])
+            print(f"  4x{bits} {m}x{n} K={k} mu={mu}: error after the tuned "
+                  f"{iters} iteration(s) {err:.6f} (trace {last:.6f}); after "
+                  f"{TIMED_ITERS}: {recovery_error(chained.x, x_star):.6f}; "
+                  f"chained, traced and unfused solves bit-identical; "
+                  f"launches exact")
+            if not math.isfinite(err) or err >= 1.0 or abs(err - last) > \
+                    TRACE_TOL:
+                raise AssertionError(f"error {err} (trace {last}) not below "
+                                     f"1.0 or off the trace")
+            x = chained.x
+            ops = [(v.codes, v.scales) for v in (qphi, qphit, qy, x)]
+            kern = {
+                "chained": median_ms(lambda: it.iteration_chain_cuda(
+                    4, bits, *ops, mu, k, [0] * 4 * CHAIN), 5, 20) / CHAIN,
+                "traced": median_ms(lambda: tt.restore_vec(tt.threshold(
+                    type(x)(*it.iteration_cuda(4, bits, *ops, mu), n), k)),
+                    5, 20),
+                "unfused": median_ms(lambda: unfused_chain(
+                    bits, ops, mu, k, [0] * 4, False), 5, 20)}
+            runs = {"chained": lambda: tt.iht(qphi, qphit, qy, TIMED_ITERS,
+                                              k, mu),
+                    "traced": lambda: tt.iht(qphi, qphit, qy, TIMED_ITERS,
+                                             k, mu, x_star=xs),
+                    "unfused": lambda: unfused_iht(qphi, qphit, qy,
+                                                   TIMED_ITERS, k, mu)}
+            for label, fn in runs.items():
+                fn()                                   # warm-up
+                host, dev_ms = timed(fn)
+                host, dev_ms = host / TIMED_ITERS, dev_ms / TIMED_ITERS
+                print(f"    {label:8s} {1e3 / host:9.1f} iterations/s (host "
+                      f"clock, {host:.4f} ms/iteration; CUDA events "
+                      f"{1e3 / dev_ms:.1f}/s, {dev_ms:.4f} ms); kernels "
+                      f"{kern[label]:.4f} ms/iteration: device busy "
+                      f"~{kern[label] / dev_ms:.2f}")
+    return totals
+
+
+def plain_accuracy_trace(config: str):
+    """The deterministic -a trace of the 4 or 4x8 configuration through the
+    plain versions, on the card."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch import kernels as kn
+    from clover_tpu_torch.models import ACCURACY_MU, make_iht_problem_reference
+    bits = 8 if config == "4x8" else 4
+    mu = ACCURACY_MU["4x8" if config == "4x8" else 4]
+    phi, x_star, y = make_iht_problem_reference(device="cuda")
+    pc, ps = kn.quantize_mat_plain(phi, 4)
+    phi_t = (kn.transpose4_plain(pc), ps.T.contiguous())
+    yq = kn.quantize_vec_plain(y, bits)
+    x = tt.zeros_vector(bits, x_star.shape[0], device="cuda")
+    x = x.codes, x.scales
+    errs, norm = [], torch.linalg.norm(x_star)
+    for _ in range(EPOCHS):
+        x = kn.iteration_plain(4, bits, (pc, ps), phi_t, yq, x, mu)
+        codes = (kn.threshold4_plain(x[0], x[1], 64) if bits == 4 else
+                 kn.threshold8_plain(x[0], x[1], 64, x_star.shape[0]))
+        x = codes, x[1]
+        values = kn.restore_vec_plain(codes, x[1], bits)
+        errs.append(torch.linalg.norm(values - x_star) / norm)
+    return torch.stack(errs)
+
+
+def run_cli(argv):
+    """``python -m clover_tpu_torch`` in this process, its output kept;
+    -> {config name: final error}."""
+    import contextlib
+    import io
+    from clover_tpu_torch import cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"clover_tpu_torch {' '.join(argv)} exited {rc}")
+    finals, name = {}, None
+    for line in out.getvalue().splitlines():
+        if line.startswith("=== "):
+            name = line.split(": ", 1)[1].split(" (", 1)[0]
+        elif line.startswith("  final: "):
+            finals[name] = float(line.split(": ")[1])
+    return finals
+
+
+def phase_accuracy():
+    """-a through the CLI on the card, deterministic and SR; -> the launch
+    counts of the deterministic run."""
+    import torch
+    from clover_tpu_torch.models import run_iht_accuracy
+    print(f"== 8. python -m clover_tpu_torch -a: the accuracy protocol, "
+          f"512x1024 K=64, {EPOCHS} epochs, five precisions")
+    # traced: each epoch restores x (4x8, 4, 8); the 4 and 4x8 iterations
+    # are one whole-iteration launch each, 8-bit two MVM launches
+    expected = {"quantize_mat": 3, "quantize_vec": 3, "transpose4": 2,
+                "transpose8": 1, "iteration": 2 * EPOCHS,
+                "threshold4": EPOCHS, "threshold8": 2 * EPOCHS,
+                "mvm8": 2 * EPOCHS, "restore_vec": 3 * EPOCHS}
+    argv = ["-a", "--epochs", str(EPOCHS)]
+    det, counts = launched(lambda: run_cli([*argv, "--no-sr"]), expected)
+    sr, _ = launched(lambda: run_cli(argv), expected)
+    print(f"  launches per run {counts} (exact)")
+    for name in det:
+        print(f"  {name:7s} final error: deterministic {det[name]:.6f}, SR "
+              f"{sr[name]:.6f} (SR seed 0)")
+    if len(det) != 5 or not all(math.isfinite(e) and e < 1.0
+                                for e in det.values()):
+        raise AssertionError(f"deterministic finals {det}: not all five "
+                             f"below 1.0")
+    for config in ("4", "4x8"):
+        got, _ = launched(
+            lambda: run_iht_accuracy(4 if config == "4" else "4x8",
+                                     epochs=EPOCHS),
+            {"quantize_mat": 1, "quantize_vec": 1, "transpose4": 1,
+             "iteration": EPOCHS, f"threshold{8 if config == '4x8' else 4}":
+             EPOCHS, "restore_vec": EPOCHS})
+        want = plain_accuracy_trace(config)
+        gap = float((got - want).abs().max())
+        print(f"  {config:3s} deterministic trace: {EPOCHS} iteration "
+              f"launches; kernels against plain versions max |diff| "
+              f"{gap:.3g}; final {float(got[-1]):.6f}")
+        if got.shape != (EPOCHS,) or not gap <= TRACE_TOL:
+            raise AssertionError(f"{config}: trace differs from the plain "
+                                 f"versions' by {gap}")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -911,6 +1293,10 @@ def main() -> int:
         phase_solve_parity(name, phi, x_star, y)
     runs.append(phase_batched_iht(phi))
     runs.append(phase_server(mats, gen))
+    del phi, x_star, y, mats
+    torch.cuda.empty_cache()
+    runs.append(phase_small_iht())
+    runs.append(phase_accuracy())
     launches = {kernel: sum(run[kernel] for run in runs)
                 for kernel in KERNEL_INFO}
     for kernel, n in launches.items():
@@ -919,7 +1305,10 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": rep.err[name], "ms": rep.ms[name],
-                "plain_ms": rep.plain_ms[name]}
+                "plain_ms": rep.plain_ms[name],
+                "bound_ms": rep.bound[name][0],
+                "bound_by": rep.bound[name][1],
+                "library_ms": rep.library_ms[name]}
                for name, (src, replaces) in KERNEL_INFO.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

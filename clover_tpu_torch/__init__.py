@@ -16,7 +16,7 @@ from .formats import (
 )
 from .models import (
     BatchSolveResult, SolveResult, gd, gd_batched, iht, iht_batched,
-    make_iht_problem,
+    make_gd_problem, make_iht_problem,
 )
 from .ops.axpy import scale_and_add
 from .ops.gemm import gemm_f32, mvm_batched, mvm_batched_f32
@@ -39,6 +39,6 @@ __all__ = [
     "restore", "restore_vec", "restore_mat",
     "scale_and_add", "mvm", "mvm_axpy", "mvm_f32", "threshold", "transpose",
     "mvm_batched", "mvm_batched_f32", "gemm_f32",
-    "iht", "gd", "SolveResult", "make_iht_problem",
+    "iht", "gd", "SolveResult", "make_iht_problem", "make_gd_problem",
     "iht_batched", "gd_batched", "BatchSolveResult",
 ]

@@ -40,4 +40,37 @@ __device__ __forceinline__ int8_t pack_byte(int lo, int hi) {
 __device__ __forceinline__ int low_code(int byte) { return (byte & 15) - 8; }
 __device__ __forceinline__ int high_code(int byte) { return byte >> 4; }
 
+// Loads of data that another CTA of the same cooperative launch wrote
+// before a grid barrier (iteration.cu): ld.global.cg reads L2, so no SM
+// sees a stale L1 line of an earlier iteration, and the volatile asm with
+// a memory clobber keeps the compiler from caching or hoisting the load
+// across the barrier.
+__device__ __forceinline__ uint4 ld_cg(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.cg.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ float ld_cg(const float* p) {
+  float v;
+  asm volatile("ld.global.cg.f32 %0, [%1];" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ int8_t ld_cg(const int8_t* p) {
+  int v;
+  asm volatile("ld.global.cg.s8 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return (int8_t)v;
+}
+
+// A plain load, or ld_cg when CG.
+template <bool CG, typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (CG)
+    return ld_cg(p);
+  else
+    return *p;
+}
+
 }  // namespace clover

@@ -1,0 +1,5 @@
+"""The command-line modes' harness (counterpart of clover_tpu/harness/):
+``accuracy`` (``-a``) and the system banner.  Entry point:
+clover_tpu_torch.cli."""
+
+from . import accuracy, sysinfo  # noqa: F401

@@ -10,6 +10,10 @@ import time.
 
 from .axpy import axpy_cuda
 from .dispatch import SEED_GOLD, SEED_OP, on_cuda, seed_from, wrap_i32
+from .iteration import (
+    iteration_chain_cuda, iteration_chain_eligible, iteration_chain_plain,
+    iteration_cuda, iteration_eligible, iteration_plain,
+)
 from .mvm import axpy_plain, mvm4_cuda, mvm4_plain, mvm8_cuda, mvm8_plain
 from .mvm_batched import MAX_BATCH, mvm_batched_cuda, mvm_batched_plain
 from .quantize import (
@@ -37,6 +41,8 @@ KERNELS = {
     "threshold8": threshold8_cuda,
     "axpy": axpy_cuda,
     "mvm_batched": mvm_batched_cuda,
+    "iteration": iteration_cuda,
+    "iteration_chain": iteration_chain_cuda,
 }
 
 
@@ -62,4 +68,7 @@ __all__ = [
     "MAX_BATCH", "mvm_batched_cuda", "mvm_batched_plain",
     "threshold4_cuda", "threshold4_plain",
     "threshold8_cuda", "threshold8_plain",
+    "iteration_cuda", "iteration_plain", "iteration_eligible",
+    "iteration_chain_cuda", "iteration_chain_plain",
+    "iteration_chain_eligible",
 ]

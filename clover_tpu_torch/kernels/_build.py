@@ -42,6 +42,11 @@ SIGNATURES = {
     "clover_axpy": (_P, _P, _P, _P, _F32, _P, _P, _I64, _I32, _I32, _U32, _P),
     "clover_mvm_batched": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
                            _I32, _I32, _U32, _P),
+    "clover_iteration_occupancy": (_I32, _I32, _I32, _P),
+    "clover_iteration": (*(_P,) * 12, _I64, _I64, _F32, _I32, _I32, _P, _P,
+                         _I32, _P),
+    "clover_iteration_chain": (*(_P,) * 15, _I64, _I64, _F32, _I64, _I32,
+                               _I32, _I32, _P, _P, _I32, _P),
 }
 
 
@@ -115,6 +120,19 @@ def launch(name: str, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(built.lib, name)(*args, stream)
+    _raise_on(built, name, rc)
+
+
+def call(name: str, device: torch.device, *args) -> None:
+    """Call C entry ``name``, which takes no stream, with ``device``
+    current; raise on error."""
+    built = library()
+    with torch.cuda.device(device):
+        rc = getattr(built.lib, name)(*args)
+    _raise_on(built, name, rc)
+
+
+def _raise_on(built: Library, name: str, rc: int) -> None:
     if rc != 0:
         msg = built.lib.clover_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")

@@ -6,6 +6,12 @@ The per-iteration update (IHT; GD omits the threshold):
     x  = Q(x + mu * Q(PhiT @ t2))   fused MVM+AXPY, one launch
     x  = top_k(x, K)                threshold, one launch
 
+Small 4x4 and 4x8 problems (both padded sides multiples of 512, at most
+8192: kernels/iteration.py iteration_eligible) run the two legs as one
+whole-iteration launch, and untraced solves of at least ``ITER_CHAIN``
+iterations run ``ITER_CHAIN`` whole iterations, thresholds included, per
+launch, the rest unchained.  Every path gives the same bytes.
+
 The solve is a Python loop that never waits for the device: ``mu`` and
 ``k`` reach the kernels as host numbers, the per-op SR seeds are host ints
 derived by int32 arithmetic, and the threshold's cut-off stays on the
@@ -22,7 +28,8 @@ from typing import NamedTuple
 import torch
 
 from ..formats import QVec32, zeros_vector
-from ..kernels.dispatch import SEED_GOLD, SEED_OP, seed_from, wrap_i32
+from ..kernels import iteration as fused
+from ..kernels.dispatch import SEED_GOLD, SEED_OP, on_cuda, seed_from, wrap_i32
 from ..ops.mvm import mvm_axpy
 from ..ops.quantize import restore_vec
 from ..ops.threshold import threshold
@@ -42,10 +49,32 @@ def _op_seeds(seed, n: int = 4):
     return tuple(wrap_i32(s + (j + 1) * SEED_OP) for j in range(n))
 
 
+# iterations per chained launch: clover_tpu's default chain length
+# (CLOVER_ITER_CHAIN_LEN, clover_tpu/models/solvers.py)
+ITER_CHAIN = 4
+
+
+def _fused(kernel, plain, Phi, PhiT, y, x, *args, seeds):
+    """x after a whole-iteration kernel (or its plain version on the
+    CPU) with arguments ``args`` and the per-op seeds, None for
+    deterministic."""
+    words = [0 if s is None else s for s in seeds]
+    noise = tuple(s is not None for s in seeds[:4])
+    fn = kernel if on_cuda(Phi.codes, x.codes) else plain
+    codes, scales = fn(Phi.bits, x.bits, *[(q.codes, q.scales) for q in
+                                           (Phi, PhiT, y, x)],
+                       *args, words, noise)
+    return type(x)(codes=codes, scales=scales, length=x.length)
+
+
 def _iteration(Phi, PhiT, y, x, mu, k, seed):
     k1, k2, k3, k4 = _op_seeds(seed)
-    t2 = mvm_axpy(Phi, x, y, -1.0, k1, k2)          # y - Phi x
-    x = mvm_axpy(PhiT, t2, x, mu, k3, k4)           # x + mu PhiT t2
+    if fused.iteration_eligible(Phi, PhiT, y, x):
+        x = _fused(fused.iteration_cuda, fused.iteration_plain, Phi, PhiT,
+                   y, x, mu, seeds=(k1, k2, k3, k4))
+    else:
+        t2 = mvm_axpy(Phi, x, y, -1.0, k1, k2)      # y - Phi x
+        x = mvm_axpy(PhiT, t2, x, mu, k3, k4)       # x + mu PhiT t2
     if k is not None:
         x = threshold(x, k)
     return x
@@ -60,10 +89,22 @@ def _solve(Phi, PhiT, y, x0, x_star, iterations: int, k, mu: float,
     seed0 = seed_from(generator)[0] if generator is not None else None
     xs = x_star.values if x_star is not None else None
     xs_norm = torch.linalg.norm(xs) if xs is not None else None
-    x, errs = x0, []
-    for it in range(iterations):
-        seed = wrap_i32(seed0 + it * SEED_GOLD) if seed0 is not None else None
-        x = _iteration(Phi, PhiT, y, x, float(mu), k, seed)
+    x, errs, start = x0, [], 0
+
+    def seed_of(it):
+        return wrap_i32(seed0 + it * SEED_GOLD) if seed0 is not None else None
+
+    if (xs is None and iterations >= ITER_CHAIN
+            and fused.iteration_chain_eligible(Phi, PhiT, y, x0, k)):
+        start = iterations // ITER_CHAIN * ITER_CHAIN
+        for c in range(0, start, ITER_CHAIN):
+            seeds = [s for it in range(c, c + ITER_CHAIN)
+                     for s in _op_seeds(seed_of(it))]
+            x = _fused(fused.iteration_chain_cuda,
+                       fused.iteration_chain_plain, Phi, PhiT, y, x,
+                       float(mu), k, seeds=seeds)
+    for it in range(start, iterations):
+        x = _iteration(Phi, PhiT, y, x, float(mu), k, seed_of(it))
         if xs is not None:
             errs.append(torch.linalg.norm(restore_vec(x).values - xs) / xs_norm)
     trace = (torch.stack(errs) if errs

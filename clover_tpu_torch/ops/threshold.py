@@ -6,8 +6,8 @@ ascending.  Scales are never touched.  4- and 8-bit run the threshold
 kernel on CUDA and its plain version on the CPU; one kernel serves every
 length, and a stacked 4/8-bit container (leading batch dim) thresholds
 each row in the same launch, the counterpart of ``jax.vmap(threshold)``
-in clover_tpu/models/batch.py.  16/32-bit are plain and CPU only for now
-(clover_tpu computes them in XLA, with no Pallas kernel).
+in clover_tpu/models/batch.py.  16/32-bit are plain torch on either
+device (clover_tpu computes them in XLA, with no Pallas kernel).
 """
 
 from __future__ import annotations
@@ -41,9 +41,6 @@ def threshold(x, k: int):
             codes = threshold8_plain(x.codes, x.scales, k, x.length)
         return QVec8(codes=codes, scales=x.scales, length=x.length)
     v = x.values
-    if on_cuda(v):
-        raise NotImplementedError(f"the {type(x).__name__} threshold is "
-                                  f"not ported yet (ROADMAP.md queue 1)")
     keep = golden_keep(v.to(torch.float32).abs(), k, x.length)
     cls = QVec16 if isinstance(x, QVec16) else QVec32
     return cls(values=torch.where(keep, v, torch.zeros_like(v)),

@@ -209,6 +209,32 @@ def test_make_iht_problem():
     assert float(phi.min()) >= -1.0 and float(phi.max()) < 1.0
     assert int(x.count_nonzero()) == 16 and set(x.unique().tolist()) == {0, 1}
     torch.testing.assert_close(phi @ x, y)
-    p2, x2, _ = tt.make_iht_problem(128, 256, 16)
-    p3, x3, _ = tt.make_iht_problem(128, 256, 16)
+    p2, x2, _ = tt.make_iht_problem(128, 256, 16, device="cpu")
+    p3, x3, _ = tt.make_iht_problem(128, 256, 16, device="cpu")
     assert torch.equal(p2, p3) and torch.equal(x2, x3)
+
+
+def test_make_iht_problem_defaults_to_cuda(monkeypatch):
+    """With neither a generator nor a device the problem is built on
+    ``cuda`` (a generator seeded DEFAULT_SEED there); ``device="cpu"`` is
+    the CPU generator with that seed; a device that contradicts the
+    generator raises."""
+    from clover_tpu_torch.models import problems
+    asked = []
+    real = torch.Generator
+
+    def recording(device="cpu"):
+        asked.append(torch.device(device))
+        return real()                   # the data itself stays on the CPU
+
+    monkeypatch.setattr(torch, "Generator", recording)
+    tt.make_iht_problem(128, 256, 16)
+    tt.make_gd_problem(128, 256)
+    monkeypatch.undo()
+    assert asked == [torch.device("cuda")] * 2
+    want = torch.rand(128, 256, generator=real().manual_seed(
+        problems.DEFAULT_SEED)) * 2 - 1
+    assert torch.equal(tt.make_iht_problem(128, 256, 16, device="cpu")[0],
+                       want)
+    with pytest.raises(ValueError, match="differs"):
+        tt.make_iht_problem(128, 256, 16, generator=real(), device="meta")

@@ -139,3 +139,18 @@ def test_threshold_plain_builds_its_mask_on_the_data_device(bits):
                     torch.zeros(n, dtype=torch.int64, device="meta"),
                     torch.full((n,), -1, dtype=torch.int64, device="meta")
                     ).sum()
+
+
+@pytest.mark.parametrize("bits", [16, 32])
+def test_threshold16_32_runs_where_the_data_lives(bits):
+    """The 16/32-bit threshold is plain torch on every device (clover_tpu
+    computes it in XLA, with no kernel): on a meta tensor, as on a CUDA
+    one, it neither raises nor leaves the data's device."""
+    n, length, k = 384, 300, 10
+    cls = tt.QVec16 if bits == 16 else tt.QVec32
+    dtype = torch.float16 if bits == 16 else torch.float32
+    out = tt.threshold(cls(values=torch.zeros(n, dtype=dtype, device="meta"),
+                           length=length), k)
+    assert type(out) is cls and out.length == length
+    assert out.values.device.type == "meta" and out.values.dtype == dtype
+    assert out.values.shape == (n,)
