@@ -30,7 +30,12 @@ and an untraced solve one chained launch per 4 iterations:
   100 iterations untraced and traced;
 - the accuracy protocol, ``python -m clover_tpu_torch -a``: the
   reference's 512x1024 instance, K=64, 200 epochs, five precisions,
-  deterministic and SR.
+  deterministic and SR;
+
+and the validation mode, ``python -m clover_tpu_torch -v``: every op
+against the golden oracle over the default size sweep; and the large-n
+4-bit IHT (2048x524288, K=64), whose threshold is the hybrid (hist4, an
+exact selector in torch, mask4).
 
 Phases, each of which raises on failure:
 
@@ -47,7 +52,17 @@ Phases, each of which raises on failure:
    per-row plain ones; the whole-iteration and chained kernels (4x4,
    4x8; 4096x8192, 2048x4096, 512x1024; chains of 4 with k = n/4 and
    GD) bit-identical to their plain versions and to the unfused kernel
-   sequence, at grids 1, 7 and the default; device times by CUDA events
+   sequence, at grids 1, 7 and the default; the matrix restore
+   bit-identical (8192x16384 and 200x300, SR codes); the dot within 1e-5
+   of its terms' absolute sum of the plain version, bit-identical on a
+   repeated call, and within 0.02 max(1, |ref|/10) of golden.dot at
+   n <= 65536 (n = 16384, 2^24, 1000); hist4 and mask4 bit-identical, and
+   the hybrid through ``tt.threshold`` byte-identical to the radix kernel
+   and its plain version (n = 2^19, 2^20, 2^23; K = 1, 64, 256; uniform,
+   integer-valued and k > nnz data) and free of host syncs (torch's sync
+   debug mode), with the hybrid's split (hist4, selector, mask4) timed
+   beside the radix kernel; device times by CUDA
+   events
    (median of 5
    windows of 20 back-to-back launches queued behind a spin kernel; plain
    versions 3 single calls), and the batched MVM's per-vector time at
@@ -75,7 +90,18 @@ Phases, each of which raises on failure:
    (200 whole-iteration launches in each of the 4 and 4x8
    configurations), every deterministic final error below 1.0, the SR
    finals printed beside them, and the deterministic 4 and 4x8 traces
-   against the plain versions' on the card within 1e-6.
+   against the plain versions' on the card within 1e-6;
+9. ``-v`` through the CLI: exit 0, ``N checks, 0 failures`` with no
+   ``Failed`` line, N equal to the same sweep's count on the CPU (run in
+   this process after it), and a launch of every 4/8-bit kernel the
+   sweep reaches (``VALIDATE_KERNELS``), matrix restore and dot
+   included; the phase's wall time;
+10. the large-n 4-bit IHT through ``tt.iht``: Phi and y quantized with SR,
+    10 deterministic iterations with mu = 1/m; exact launch counts (two
+    MVM+AXPY legs, one hist4 and one mask4 per iteration, no threshold4),
+    the solution bit-identical to an unfused loop through the radix
+    threshold kernel, no host sync in the solve, the error (finite),
+    iterations/s and the device's busy share.
 
 The line before the last is ``{"kernels": [...]}``, each kernel with its
 bound: the larger of its bytes (every input read once, every output
@@ -107,6 +133,8 @@ SEED = 0
 MVM_SCALE_RTOL = 1e-6
 SOLVE_ERR_TOL = 0.01
 TRACE_TOL = 1e-6
+HOST_SPIN_CYCLES = 1 << 26    # ~40 ms: enough to enqueue 20 calls of an op
+                              # made of ~20 torch launches (the hybrid's)
 SPIN_CYCLES = 1 << 23         # ~4-5 ms at the H100's clocks: time enough to
                               # enqueue 20 kernel calls or one plain call
 CONFIGS = ("4", "4x8", "8")
@@ -116,6 +144,19 @@ SMALL_SOLVES = SMALL[:2]      # bench.py's small IHT sizes
 CHAIN = 4                     # iterations per chained launch (the solver's)
 EPOCHS = 200                  # the accuracy protocol's
 INT8_OPS = 1979e12            # H100 SXM int8 tensor-core peak, ops/s
+DOT_SIZES = (16384, 1 << 24, 1000)
+DOT_RTOL = 1e-5               # of sum |t_b|: the f32 sum order differs
+HYBRID_SIZES = (1 << 19, 1 << 20, 1 << 23)
+HYBRID_KS = (1, 64, 256)
+HYBRID_TIMED = ((1 << 20, 64), (1 << 23, 256))
+LARGE = (2048, 524288, 64)    # the large-n 4-bit IHT: m, n = 2^19, K
+LARGE_ITERS = 10
+# kernels the -v sweep must reach on the card (not the batched MVM and the
+# hybrid threshold's: the sweep's vectors are at most 2047 long)
+VALIDATE_KERNELS = ("quantize_mat", "quantize_vec", "transpose4",
+                    "transpose8", "mvm4", "mvm8", "threshold4", "threshold8",
+                    "restore_vec", "axpy", "iteration", "iteration_chain",
+                    "restore_mat", "dot")
 
 # kernel -> (CUDA source, pallas_call it replaces)
 KERNEL_INFO = {
@@ -143,6 +184,13 @@ KERNEL_INFO = {
                   "clover_tpu/kernels/iteration.py:311"),
     "iteration_chain": ("clover_tpu_torch/csrc/iteration.cu",
                         "clover_tpu/kernels/iteration.py:549"),
+    "restore_mat": ("clover_tpu_torch/csrc/restore.cu",
+                    "clover_tpu/kernels/restore.py:134"),
+    "dot": ("clover_tpu_torch/csrc/dot.cu", "clover_tpu/kernels/dot.py:158"),
+    "hist4": ("clover_tpu_torch/csrc/threshold_hybrid.cu",
+              "clover_tpu/kernels/threshold.py:489"),
+    "mask4": ("clover_tpu_torch/csrc/threshold_hybrid.cu",
+              "clover_tpu/kernels/threshold.py:596"),
 }
 
 
@@ -162,7 +210,7 @@ def config(name: str):
     return 8, 8, *row[8], row["quality_target"]
 
 
-def median_ms(fn, reps: int, inner: int) -> float:
+def median_ms(fn, reps: int, inner: int, spin: int = SPIN_CYCLES) -> float:
     """Median over ``reps`` windows of the mean CUDA-event time of
     ``inner`` back-to-back calls, after one warm-up call.
 
@@ -177,7 +225,7 @@ def median_ms(fn, reps: int, inner: int) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         start.record()
         for _ in range(inner):
             fn()
@@ -715,6 +763,163 @@ def check_iteration(rep: Report, gen, modes):
                     pair + vecs, ops=4 * m * n * CHAIN)
 
 
+def check_restore_mat(rep: Report, phi, gen):
+    """Matrix restore at the main path's 8192x16384 and a ragged 200x300,
+    on SR-quantized matrices: bit-identical."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch.kernels import restore_mat_cuda, restore_mat_plain
+    ragged = torch.rand(200, 300, generator=gen, device=gen.device) * 2 - 1
+    for a, shape in ((phi, f"{M}x{N}"), (ragged, "200x300")):
+        for bits in (4, 8):
+            q = tt.quantize(a, bits, generator=gen)
+            rep.exact("restore_mat", f"{shape} {bits}-bit SR",
+                      restore_mat_cuda(q.codes, q.scales, bits),
+                      restore_mat_plain(q.codes, q.scales, bits))
+    q = tt.quantize(phi, 4, generator=gen)
+    rep.time("restore_mat", lambda: restore_mat_cuda(q.codes, q.scales, 4),
+             lambda: restore_mat_plain(q.codes, q.scales, 4),
+             M * N // 2 + 4 * (M // 64) * (N // 64) + 4 * M * N)
+
+
+def check_dot(rep: Report, gen):
+    """The dot kernel against its plain version (within DOT_RTOL of the
+    terms' absolute sum), two calls bit-identical, and against the port's
+    golden.dot at n <= 65536 within the reference's 0.02 max(1, |ref|/10)."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch import golden
+    from clover_tpu_torch.kernels import dot_cuda, dot_plain, dot_terms
+    dev = gen.device
+    timed_ops = None
+    for n in DOT_SIZES:
+        for bits in (4, 8):
+            u, v = (tt.quantize(torch.rand(n, generator=gen, device=dev) * 2
+                                - 1, bits, generator=gen) for _ in range(2))
+            ops = (u.codes, u.scales, v.codes, v.scales, bits)
+            got, again = dot_cuda(*ops), dot_cuda(*ops)
+            terms = dot_terms(*ops)
+            gap = float((got - terms.sum()).abs())
+            tol = DOT_RTOL * float(terms.abs().sum())
+            if gap > tol or not torch.equal(got.view(torch.int32),
+                                            again.view(torch.int32)):
+                raise AssertionError(f"dot n={n} {bits}-bit: |kernel - "
+                                     f"plain| {gap} > {tol}, or two calls "
+                                     f"differ")
+            rep.err["dot"] = max(rep.err["dot"], gap)
+            line = (f"  dot           n={n} {bits}-bit: {float(got):.7g}, "
+                    f"|kernel - plain| {gap:.3g} <= {tol:.3g}, repeat "
+                    f"bit-identical")
+            if n <= 65536:
+                ref = float(golden.dot(*(codes_of(c, bits).cpu().numpy()
+                                         if c.dtype == torch.int8
+                                         else c.cpu().numpy()
+                                         for c in ops[:4]), bits))
+                lim = 0.02 * max(1.0, abs(ref) / 10)
+                if abs(float(got) - ref) > lim:
+                    raise AssertionError(f"dot n={n} {bits}-bit: {float(got)}"
+                                         f" vs golden {ref}")
+                line += f", golden {ref:.7g}"
+            print(line)
+            if (n, bits) == (1 << 24, 4):
+                timed_ops = ops
+    rep.time("dot", lambda: dot_cuda(*timed_ops),
+             lambda: dot_plain(*timed_ops), 2 * qbytes(1 << 24, 4) + 4)
+
+
+def hybrid_data(gen, n: int, k: int):
+    """Uniform, integer-valued in [-3, 3] (tie storms) and k > nnz data."""
+    import torch
+    dev = gen.device
+    sparse = torch.zeros(n, device=dev)
+    sparse[torch.randperm(n, generator=gen, device=dev)[:max(1, k // 2)]] = 1.0
+    return (("uniform", torch.rand(n, generator=gen, device=dev) * 2 - 1),
+            ("integer", torch.randint(-3, 4, (n,), generator=gen,
+                                      device=dev).float()),
+            ("k > nnz", sparse))
+
+
+def check_hybrid(rep: Report, gen):
+    """hist4 bit-identical to its plain version; mask4 likewise on the
+    selector's (tau, fill, offsets); the whole hybrid through tt.threshold
+    byte-identical to the radix kernel and its plain version; times of the
+    split beside the radix kernel."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch import kernels as kn
+    from clover_tpu_torch.ops import _core
+    from clover_tpu_torch.ops.threshold import hybrid_select
+    for n in HYBRID_SIZES:
+        for k in HYBRID_KS:
+            for what, v in hybrid_data(gen, n, k):
+                q = tt.quantize(v, 4)
+                h = kn.hist4_cuda(q.codes)
+                if k == HYBRID_KS[0]:
+                    rep.exact("hist4", f"n={n} {what}", h,
+                              kn.hist4_plain(q.codes))
+                m7 = _core.div(q.scales, 7.0)
+                sel = hybrid_select(h, m7, k)
+                rep.exact("mask4", f"n={n} k={k} {what}",
+                          (kn.mask4_cuda(q.codes, m7, *sel), q.scales),
+                          (kn.mask4_plain(q.codes, m7, *sel), q.scales))
+                got = tt.threshold(q, k).codes
+                radix = kn.threshold4_cuda(q.codes, q.scales, k)
+                plain = kn.threshold4_plain(q.codes, q.scales, k)
+                if not (torch.equal(got, radix) and torch.equal(got, plain)):
+                    raise AssertionError(f"hybrid n={n} k={k} {what}: codes "
+                                         f"differ from the radix kernel's or "
+                                         f"its plain version's")
+            print(f"  hybrid        n={n} k={k}: uniform, integer, k > nnz "
+                  f"byte-identical to threshold4_cuda and threshold4_plain")
+    for n, k in ((LARGE[1], LARGE[2]),) + HYBRID_TIMED:
+        q = tt.quantize(torch.rand(n, generator=gen, device=gen.device) * 2
+                        - 1, 4, generator=gen)
+        m7 = _core.div(q.scales, 7.0)
+        h = kn.hist4_cuda(q.codes)
+        sel = hybrid_select(h, m7, k)
+        without_host_sync(lambda: tt.threshold(q, k), f"hybrid n={n} k={k}")
+        if (n, k) == (LARGE[1], LARGE[2]):
+            # the large-n IHT's shape (phase 10) for the kernels line
+            rep.time("hist4", lambda: kn.hist4_cuda(q.codes),
+                     lambda: kn.hist4_plain(q.codes), n // 2 + 32 * (n // 64))
+            rep.time("mask4", lambda: kn.mask4_cuda(q.codes, m7, *sel),
+                     lambda: kn.mask4_plain(q.codes, m7, *sel),
+                     n + 12 * (n // 64) + 12)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            tt.threshold(q, k)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 20
+        torch.cuda.synchronize()
+        # the whole op and the selector take longer to enqueue than to run:
+        # the long spin keeps their windows on the device's clock
+        split = {
+            "whole op": median_ms(lambda: tt.threshold(q, k), 5, 20,
+                                  HOST_SPIN_CYCLES),
+            "hist4": median_ms(lambda: kn.hist4_cuda(q.codes), 5, 20),
+            "selector": median_ms(lambda: hybrid_select(h, m7, k), 5, 20,
+                                  HOST_SPIN_CYCLES),
+            "mask4": median_ms(lambda: kn.mask4_cuda(q.codes, m7, *sel), 5,
+                               20),
+            "radix threshold4_cuda": median_ms(
+                lambda: kn.threshold4_cuda(q.codes, q.scales, k), 5, 20)}
+        print(f"  hybrid        n={n} K={k} device ms: " + ", ".join(
+            f"{name} {ms:.4f}" for name, ms in split.items())
+            + f"; host {host_ms:.4f} ms to enqueue the whole op; no host "
+              f"sync")
+
+
+def without_host_sync(fn, what: str):
+    """fn() with torch's sync debug mode raising on any host sync."""
+    import torch
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    except RuntimeError as e:
+        raise AssertionError(f"{what} synchronizes with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def phase_kernels(rep: Report, phi, mats, gen):
     """Every kernel against its plain version, on the main paths' shapes."""
     import torch
@@ -738,6 +943,9 @@ def phase_kernels(rep: Report, phi, mats, gen):
     check_mvm_batched(rep, gen, qphi, mats, modes)
     check_threshold_batched(rep, gen)
     check_iteration(rep, gen, modes)
+    check_restore_mat(rep, phi, gen)
+    check_dot(rep, gen)
+    check_hybrid(rep, gen)
 
 
 def recovery_error(x, x_star) -> float:
@@ -1078,15 +1286,26 @@ def small_config(name: str, m: int, n: int):
     return (4 if name == "4" else 8), row["iters"], row["mu"], row["K"]
 
 
-def unfused_iht(qphi, qphit, qy, iters: int, k: int, mu: float):
-    """The deterministic IHT through the public fused MVM+AXPY and threshold
-    ops: two MVM launches and one threshold launch per iteration."""
+def unfused_iht(qphi, qphit, qy, iters: int, k: int, mu: float,
+                threshold=None):
+    """The deterministic IHT through the public fused MVM+AXPY op and
+    ``threshold`` (default ``tt.threshold``): two MVM launches and one
+    threshold per iteration."""
     import clover_tpu_torch as tt
+    threshold = threshold or tt.threshold
     x = tt.zeros_vector(qy.bits, qphi.cols, device=qy.codes.device)
     for _ in range(iters):
         t2 = tt.mvm_axpy(qphi, x, qy, -1.0)
-        x = tt.threshold(tt.mvm_axpy(qphit, t2, x, mu), k)
+        x = threshold(tt.mvm_axpy(qphit, t2, x, mu), k)
     return x
+
+
+def radix_threshold4(x, k: int):
+    """A 4-bit vector thresholded by the radix-select kernel, whatever its
+    length."""
+    from clover_tpu_torch.kernels import threshold4_cuda
+    return type(x)(codes=threshold4_cuda(x.codes, x.scales, k),
+                   scales=x.scales, length=x.length)
 
 
 def launched(fn, expected: dict):
@@ -1214,9 +1433,9 @@ def plain_accuracy_trace(config: str):
     return torch.stack(errs)
 
 
-def run_cli(argv):
-    """``python -m clover_tpu_torch`` in this process, its output kept;
-    -> {config name: final error}."""
+def cli_output(argv) -> str:
+    """``python -m clover_tpu_torch`` in this process; -> its standard
+    output, after raising unless it exited 0."""
     import contextlib
     import io
     from clover_tpu_torch import cli
@@ -1224,9 +1443,15 @@ def run_cli(argv):
     with contextlib.redirect_stdout(out):
         rc = cli.main(argv)
     if rc != 0:
-        raise AssertionError(f"clover_tpu_torch {' '.join(argv)} exited {rc}")
+        raise AssertionError(f"clover_tpu_torch {' '.join(argv)} exited {rc}:"
+                             f"\n{out.getvalue()[-4000:]}")
+    return out.getvalue()
+
+
+def run_cli(argv):
+    """``-a`` through the CLI; -> {config name: final error}."""
     finals, name = {}, None
-    for line in out.getvalue().splitlines():
+    for line in cli_output(argv).splitlines():
         if line.startswith("=== "):
             name = line.split(": ", 1)[1].split(" (", 1)[0]
         elif line.startswith("  final: "):
@@ -1276,6 +1501,119 @@ def phase_accuracy():
     return counts
 
 
+def validation_count(out: str) -> int:
+    """-> N of the ``N checks, F failures`` line ending ``-v``'s output,
+    after raising on a failed check."""
+    last = out.rstrip().splitlines()[-1]
+    checks, failures = (int(w) for w in last.replace(",", "").split()[::2])
+    if failures or "Failed" in out or last != f"{checks} checks, 0 failures":
+        failed = [line for line in out.splitlines() if "Failed" in line]
+        raise AssertionError(f"-v: {last!r}; {failed[:10]}")
+    return checks
+
+
+def phase_validate():
+    """-v through the CLI on the card, then the same sweep on the CPU; ->
+    the launch counts of the card's run."""
+    import torch
+    from clover_tpu_torch import kernels
+    print("== 9. python -m clover_tpu_torch -v: every op against the golden "
+          "oracle, the default sweep")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = cli_output(["-v"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    t1 = time.perf_counter()
+    cpu = validation_count(cli_output(["-v", "--device", "cpu"]))
+    cpu_wall = time.perf_counter() - t1
+    card = validation_count(out)
+    print(f"  card: {card} checks, 0 failures in {wall:.2f} s; CPU (plain "
+          f"versions): {cpu} checks, 0 failures in {cpu_wall:.2f} s")
+    print(f"  launches {counts}")
+    if card != cpu:
+        raise AssertionError(f"-v ran {card} checks on the card, {cpu} on the "
+                             f"CPU")
+    idle = [name for name in VALIDATE_KERNELS if counts[name] == 0]
+    if idle:
+        raise AssertionError(f"-v launched no {idle} kernel")
+    return counts
+
+
+def phase_large_iht():
+    """The large-n 4-bit IHT through ``tt.iht``: the hybrid threshold; ->
+    the launch counts of its solve."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch import kernels as kn
+    m, n, k = LARGE
+    mu = 1.0 / m
+    print(f"== 10. large-n 4-bit IHT: {m}x{n} K={k} mu=1/m "
+          f"iterations={LARGE_ITERS}, untraced (hybrid threshold)")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    phi, x_star, y = tt.make_iht_problem(m, n, k, generator=gen)
+    operands = {}
+
+    def solve():
+        operands["phi"] = tt.quantize(phi, 4, generator=gen)
+        operands["y"] = tt.quantize(y, 4, generator=gen)
+        operands["phit"] = tt.transpose(operands["phi"])
+        return tt.iht(operands["phi"], operands["phit"], operands["y"],
+                      LARGE_ITERS, k, mu)
+
+    t0 = time.perf_counter()
+    res, counts = launched(solve, {
+        "quantize_mat": 1, "quantize_vec": 1, "transpose4": 1,
+        "mvm4": 2 * LARGE_ITERS, "hist4": LARGE_ITERS, "mask4": LARGE_ITERS})
+    wall = time.perf_counter() - t0
+    del phi
+    torch.cuda.empty_cache()
+    qphi, qphit, qy = operands["phi"], operands["phit"], operands["y"]
+    err = recovery_error(res.x, x_star)
+    print(f"  launches {counts} in {wall * 1e3:.2f} ms (exact); relative "
+          f"recovery error after {LARGE_ITERS} iterations {err:.6f}")
+    if not math.isfinite(err):
+        raise AssertionError(f"recovery error {err} is not finite")
+    radix, _ = launched(
+        lambda: unfused_iht(qphi, qphit, qy, LARGE_ITERS, k, mu,
+                            radix_threshold4),
+        {"mvm4": 2 * LARGE_ITERS, "threshold4": LARGE_ITERS})
+    if not same(res.x, radix):
+        raise AssertionError("large-n IHT: solution differs from the unfused "
+                             "radix-threshold loop")
+    print(f"  solution bit-identical to the unfused loop through "
+          f"threshold4_cuda")
+
+    without_host_sync(lambda: tt.iht(qphi, qphit, qy, LARGE_ITERS, k, mu),
+                      "the large-n untraced solve")
+    print("  the untraced solve makes no host sync (torch's sync debug mode)")
+    x = res.x
+    leg1 = (qphi.codes, qphi.scales, x.codes, x.scales, qy.codes, qy.scales,
+            -1.0)
+    t2 = kn.mvm4_cuda(*leg1)
+    leg2 = (qphit.codes, qphit.scales, *t2, x.codes, x.scales, mu)
+    kern = {"Phi leg": median_ms(lambda: kn.mvm4_cuda(*leg1), 5, 20),
+            "PhiT leg": median_ms(lambda: kn.mvm4_cuda(*leg2), 5, 20),
+            "hybrid threshold": median_ms(lambda: tt.threshold(x, k), 5, 20,
+                                          HOST_SPIN_CYCLES),
+            "radix threshold4_cuda": median_ms(
+                lambda: kn.threshold4_cuda(x.codes, x.scales, k), 5, 20)}
+    busy = sum(kern[name] for name in ("Phi leg", "PhiT leg",
+                                       "hybrid threshold"))
+    print("  kernel ms: " + ", ".join(f"{name} {ms:.4f}"
+                                      for name, ms in kern.items()))
+    run = lambda: tt.iht(qphi, qphit, qy, LARGE_ITERS, k, mu)  # noqa: E731
+    run()                                                       # warm-up
+    host, dev_ms = (t / LARGE_ITERS for t in timed(run))
+    print(f"  {LARGE_ITERS} untraced iterations: {1e3 / host:.1f} "
+          f"iterations/s (host clock, {host:.4f} ms/iteration; CUDA events "
+          f"{dev_ms:.4f} ms/iteration); kernels {busy:.4f} ms per iteration: "
+          f"device busy ~{busy / host:.2f} of the loop")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1297,6 +1635,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs.append(phase_small_iht())
     runs.append(phase_accuracy())
+    runs.append(phase_validate())
+    runs.append(phase_large_iht())
     launches = {kernel: sum(run[kernel] for run in runs)
                 for kernel in KERNEL_INFO}
     for kernel, n in launches.items():

@@ -18,6 +18,10 @@ from .models import (
     BatchSolveResult, SolveResult, gd, gd_batched, iht, iht_batched,
     make_gd_problem, make_iht_problem,
 )
+from .ops import (
+    dot, mat_get, mvm_sparse, random_floats, random_integers, vec_gather,
+    vec_get, vec_get_code, vec_set_code,
+)
 from .ops.axpy import scale_and_add
 from .ops.gemm import gemm_f32, mvm_batched, mvm_batched_f32
 from .ops.mvm import mvm, mvm_axpy, mvm_f32
@@ -37,8 +41,10 @@ __all__ = [
     "stack_vectors", "vector_at",
     "quantize", "quantize_vec", "quantize_mat",
     "restore", "restore_vec", "restore_mat",
-    "scale_and_add", "mvm", "mvm_axpy", "mvm_f32", "threshold", "transpose",
-    "mvm_batched", "mvm_batched_f32", "gemm_f32",
+    "dot", "scale_and_add", "mvm", "mvm_axpy", "mvm_f32", "threshold",
+    "transpose", "mvm_sparse", "mvm_batched", "mvm_batched_f32", "gemm_f32",
+    "vec_get", "vec_get_code", "vec_set_code", "mat_get", "vec_gather",
+    "random_floats", "random_integers",
     "iht", "gd", "SolveResult", "make_iht_problem", "make_gd_problem",
     "iht_batched", "gd_batched", "BatchSolveResult",
 ]

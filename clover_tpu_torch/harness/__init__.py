@@ -1,5 +1,5 @@
 """The command-line modes' harness (counterpart of clover_tpu/harness/):
-``accuracy`` (``-a``) and the system banner.  Entry point:
-clover_tpu_torch.cli."""
+``validate`` (``-v``), ``accuracy`` (``-a``) and the system banner.  Entry
+point: clover_tpu_torch.cli."""
 
-from . import accuracy, sysinfo  # noqa: F401
+from . import accuracy, sysinfo, validate  # noqa: F401

@@ -10,6 +10,7 @@ import time.
 
 from .axpy import axpy_cuda
 from .dispatch import SEED_GOLD, SEED_OP, on_cuda, seed_from, wrap_i32
+from .dot import dot_cuda, dot_plain, dot_terms
 from .iteration import (
     iteration_chain_cuda, iteration_chain_eligible, iteration_chain_plain,
     iteration_cuda, iteration_eligible, iteration_plain,
@@ -20,9 +21,12 @@ from .quantize import (
     quantize_mat_cuda, quantize_mat_plain, quantize_vec_cuda,
     quantize_vec_plain,
 )
-from .restore import restore_vec_cuda, restore_vec_plain
+from .restore import (
+    restore_mat_cuda, restore_mat_plain, restore_vec_cuda, restore_vec_plain,
+)
 from .threshold import (
-    threshold4_cuda, threshold4_plain, threshold8_cuda, threshold8_plain,
+    hist4_cuda, hist4_plain, mask4_cuda, mask4_plain, threshold4_cuda,
+    threshold4_plain, threshold8_cuda, threshold8_plain,
 )
 from .transpose import (
     transpose4_cuda, transpose4_plain, transpose8_cuda, transpose8_plain,
@@ -43,6 +47,10 @@ KERNELS = {
     "mvm_batched": mvm_batched_cuda,
     "iteration": iteration_cuda,
     "iteration_chain": iteration_chain_cuda,
+    "restore_mat": restore_mat_cuda,
+    "dot": dot_cuda,
+    "hist4": hist4_cuda,
+    "mask4": mask4_cuda,
 }
 
 
@@ -61,6 +69,9 @@ __all__ = [
     "quantize_vec_cuda", "quantize_vec_plain",
     "quantize_mat_cuda", "quantize_mat_plain",
     "restore_vec_cuda", "restore_vec_plain",
+    "restore_mat_cuda", "restore_mat_plain",
+    "dot_cuda", "dot_plain", "dot_terms",
+    "hist4_cuda", "hist4_plain", "mask4_cuda", "mask4_plain",
     "transpose4_cuda", "transpose4_plain",
     "transpose8_cuda", "transpose8_plain",
     "mvm4_cuda", "mvm4_plain", "mvm8_cuda", "mvm8_plain",

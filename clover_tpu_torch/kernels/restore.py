@@ -1,10 +1,13 @@
-"""Vector restore kernel (csrc/restore.cu) and its plain torch version.
+"""Vector and matrix restore kernels (csrc/restore.cu) and their plain
+torch versions.
 
-Replaces clover_tpu/kernels/restore.py restore_vec_pallas.  Both forms map
-the codes and block scales of a 4- or 8-bit vector to f32[n_pad] as
-``code * (s / qmax)``: the multiplier divided first (IEEE), then one
-product, the op order of clover_tpu's restore, so kernel, plain version and
-clover_tpu agree bit for bit.
+Replaces clover_tpu/kernels/restore.py restore_vec_pallas and
+restore_mat_pallas.  Every form maps the codes and scales of a 4- or 8-bit
+vector (one scale per 64-block) to f32[n_pad], or of a matrix (one scale
+per 64x64 tile) to f32[m_pad, n_pad], as ``code * (s / qmax)``: the
+multiplier divided first (IEEE), then one product, the op order of
+clover_tpu's restore, so kernel, plain version and clover_tpu agree bit
+for bit.
 """
 
 from __future__ import annotations
@@ -40,4 +43,31 @@ def restore_vec_cuda(codes: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def restore_mat_plain(codes: torch.Tensor, scales: torch.Tensor,
+                      bits: int) -> torch.Tensor:
+    c = unpack_nibbles(codes) if bits == 4 else codes
+    return c.to(torch.float32) * _core.expand_tile_scales(scales, bits)
+
+
+def restore_mat_cuda(codes: torch.Tensor, scales: torch.Tensor,
+                     bits: int) -> torch.Tensor:
+    if bits not in (4, 8):
+        raise ValueError(f"restore kernel takes bits 4 or 8, got {bits}")
+    if codes.dim() != 2:
+        raise ValueError(f"codes {tuple(codes.shape)}: expected 2-D")
+    m_pad, wb = codes.shape
+    n_pad = wb * 8 // bits
+    if m_pad % 128 or n_pad % 128:
+        raise ValueError(f"codes {tuple(codes.shape)} not padded to 128")
+    _build.check(codes, (m_pad, wb), torch.int8, "codes")
+    _build.check(scales, (m_pad // BLOCK, n_pad // BLOCK), torch.float32,
+                 "scales", codes.device)
+    out = torch.empty(m_pad, n_pad, dtype=torch.float32, device=codes.device)
+    _build.launch("clover_restore_mat", codes.device, _build.ptr(codes),
+                  _build.ptr(scales), _build.ptr(out), m_pad, n_pad, bits)
+    restore_mat_cuda.launches += 1
+    return out
+
+
 restore_vec_cuda.launches = 0
+restore_mat_cuda.launches = 0

@@ -1,16 +1,23 @@
-"""Exact threshold kernel (csrc/threshold.cu) and its plain versions.
+"""Exact threshold kernels (csrc/threshold.cu, csrc/threshold_hybrid.cu)
+and their plain versions.
 
-Replaces clover_tpu/kernels/threshold.py threshold4_pallas and
-threshold8_pallas.  Every form keeps the k largest |code * (s/qmax)| of a
-4-bit (packed) or 8-bit vector in golden order (|value| descending, index
-ascending), zeros the other codes, and returns the new codes; scales are
-the caller's, untouched.  The kernel needs no length: padding codes are
-zero, so keeping or dropping a padding tie writes the same byte.
+The radix select replaces clover_tpu/kernels/threshold.py
+threshold4_pallas and threshold8_pallas.  Every form keeps the k largest
+|code * (s/qmax)| of a 4-bit (packed) or 8-bit vector in golden order
+(|value| descending, index ascending), zeros the other codes, and returns
+the new codes; scales are the caller's, untouched.  The kernel needs no
+length: padding codes are zero, so keeping or dropping a padding tie
+writes the same byte.  Every form also takes a stacked batch, ``(B, w)``
+codes and ``(B, nb)`` scales, and thresholds each row on its own
+(clover_tpu vmaps the threshold over a batch): the kernel in one launch
+of B CTAs, the plain versions row by row.
 
-Every form also takes a stacked batch, ``(B, w)`` codes and ``(B, nb)``
-scales, and thresholds each row on its own (clover_tpu vmaps the threshold
-over a batch): the kernel in one launch of B CTAs, the plain versions row
-by row.
+The large-n 4-bit hybrid's two passes replace hist4_pallas and
+mask4_pallas, on 1-D packed codes: ``hist4`` counts |code| == c (c = 0..7)
+per 64-block as int32 (nb, 8); ``mask4`` keeps an element when
+v = |code| * m7[b] (m7 = s/7) is above tau, or equals it with
+offset[b] + (earlier ties of block b in element order) < fill.  tau, fill
+and the offsets come from ops/threshold.py hybrid_select.
 """
 
 from __future__ import annotations
@@ -96,5 +103,60 @@ def threshold8_cuda(codes: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+def hist4_plain(codes: torch.Tensor) -> torch.Tensor:
+    mag = unpack_nibbles(codes).abs().reshape(-1, BLOCK)
+    values = torch.arange(8, dtype=mag.dtype, device=mag.device)
+    return (mag[:, :, None] == values).sum(dim=1, dtype=torch.int32)
+
+
+def mask4_plain(codes: torch.Tensor, m7: torch.Tensor, tau: torch.Tensor,
+                fill: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    c = unpack_nibbles(codes)
+    v = c.abs().to(torch.float32) * m7.repeat_interleave(BLOCK)
+    tie = (v == tau).reshape(-1, BLOCK).to(torch.int64)
+    rank = tie.cumsum(dim=1) - tie + offset[:, None]
+    keep = (v > tau) | ((tie > 0) & (rank < fill)).reshape(-1)
+    return pack_nibbles(torch.where(keep, c, torch.zeros_like(c)))
+
+
+def _packed4(codes: torch.Tensor) -> int:
+    """Check 1-D packed 4-bit codes; -> n_pad."""
+    if codes.dim() != 1:
+        raise ValueError(f"codes {tuple(codes.shape)}: expected 1-D")
+    n_pad = 2 * codes.shape[0]
+    if n_pad % 128:
+        raise ValueError(f"codes {tuple(codes.shape)} not padded to 128")
+    _build.check(codes, codes.shape, torch.int8, "codes")
+    return n_pad
+
+
+def hist4_cuda(codes: torch.Tensor) -> torch.Tensor:
+    n_pad = _packed4(codes)
+    hist = torch.empty(n_pad // BLOCK, 8, dtype=torch.int32,
+                       device=codes.device)
+    _build.launch("clover_hist4", codes.device, _build.ptr(codes),
+                  _build.ptr(hist), n_pad)
+    hist4_cuda.launches += 1
+    return hist
+
+
+def mask4_cuda(codes: torch.Tensor, m7: torch.Tensor, tau: torch.Tensor,
+               fill: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+    n_pad = _packed4(codes)
+    dev, nb = codes.device, n_pad // BLOCK
+    _build.check(m7, (nb,), torch.float32, "m7", dev)
+    _build.check(tau, (), torch.float32, "tau", dev)
+    _build.check(fill, (), torch.int64, "fill", dev)
+    _build.check(offset, (nb,), torch.int64, "offset", dev)
+    out = torch.empty_like(codes)
+    P = _build.ptr
+    _build.launch("clover_mask4", dev, P(codes), P(m7), P(tau), P(fill),
+                  P(offset), P(out), n_pad)
+    mask4_cuda.launches += 1
+    return out
+
+
 threshold4_cuda.launches = 0
 threshold8_cuda.launches = 0
+hist4_cuda.launches = 0
+mask4_cuda.launches = 0

@@ -22,12 +22,16 @@ def qmax(bits: int) -> float:
 
 
 def div(num, den: torch.Tensor) -> torch.Tensor:
-    """IEEE ``num / den`` elementwise (``num`` a float or a tensor)."""
+    """IEEE ``num / den`` elementwise (``num`` or ``den`` may be a float).
+
+    A float operand is filled on the tensor's device, never copied there:
+    a host-to-device copy of a scalar synchronizes the stream."""
     if not isinstance(num, torch.Tensor):
         num = torch.full_like(den, float(num))
-    if not isinstance(den, torch.Tensor) or den.shape != num.shape:
-        den = torch.broadcast_to(torch.as_tensor(den, dtype=num.dtype,
-                                                 device=num.device),
+    if not isinstance(den, torch.Tensor):
+        den = torch.full_like(num, float(den))
+    elif den.shape != num.shape:
+        den = torch.broadcast_to(den.to(num.device, num.dtype),
                                  num.shape).contiguous()
     return torch.div(num, den)
 

@@ -3,10 +3,8 @@ clover_tpu/ops/quantize.py).
 
 ``generator`` drives stochastic rounding: None is deterministic
 truncation, a ``torch.Generator`` (or an int seed) gives Philox noise.
-4- and 8-bit quantize and vector restore run their kernels on CUDA tensors
-and the kernels' plain versions on CPU tensors.  4- and 8-bit matrix
-restore is plain and CPU only: on CUDA it raises until its kernel is
-ported.
+4- and 8-bit quantize and restore, vectors and matrices, run their kernels
+on CUDA tensors and the kernels' plain versions on CPU tensors.
 """
 
 from __future__ import annotations
@@ -15,20 +13,16 @@ import torch
 
 from ..formats import (
     QMat4, QMat8, QMat16, QMat32, QVec4, QVec8, QVec16, QVec32,
-    pad_matrix, pad_vector, unpack_nibbles,
+    pad_matrix, pad_vector,
 )
 from ..kernels.dispatch import on_cuda, seed_from
 from ..kernels.quantize import (
     quantize_mat_cuda, quantize_mat_plain, quantize_vec_cuda,
     quantize_vec_plain,
 )
-from ..kernels.restore import restore_vec_cuda, restore_vec_plain
-from . import _core
-
-RESTORE_MAT_PENDING = (
-    "the 4/8-bit matrix restore kernel is not ported yet (ROADMAP.md queue "
-    "2: clover_tpu/kernels/restore.py restore_mat_pallas); restore a CPU "
-    "copy (formats.to_device(q, 'cpu'))")
+from ..kernels.restore import (
+    restore_mat_cuda, restore_mat_plain, restore_vec_cuda, restore_vec_plain,
+)
 
 
 def _as_padded_vec(x) -> tuple[torch.Tensor, int]:
@@ -92,11 +86,8 @@ def restore_mat(q) -> QMat32:
     if isinstance(q, QMat16):
         return QMat32(values=q.values.to(torch.float32), rows=q.rows,
                       cols=q.cols)
-    if on_cuda(q.codes):
-        raise NotImplementedError(RESTORE_MAT_PENDING)
-    codes = unpack_nibbles(q.codes) if isinstance(q, QMat4) else q.codes
-    mult = _core.expand_tile_scales(q.scales, q.bits)
-    return QMat32(values=codes.to(torch.float32) * mult, rows=q.rows,
+    fn = restore_mat_cuda if on_cuda(q.codes) else restore_mat_plain
+    return QMat32(values=fn(q.codes, q.scales, q.bits), rows=q.rows,
                   cols=q.cols)
 
 

@@ -1,9 +1,11 @@
 """The NumPy half of clover_tpu/rng.py: the reference's XORShift128+ lane
 seeding and its AVX generator's quirk stream, which the reference problem
-instances are drawn from (models/problems.py).
+instances are drawn from (models/problems.py), and the plain xorshift
+stream the random-data generators read (ops/access.py).
 
 A copy, not an import: clover_tpu/rng.py imports jax.  ``_np_next``,
-``_np_jump``, ``init_lanes``, ``avx_part2_lanes`` and ``avx_quirk_stream``
+``_np_jump``, ``init_lanes``, ``np_stream``, ``avx_part2_lanes`` and
+``avx_quirk_stream``
 are clover_tpu's functions unchanged, so both packages draw the same
 instances bit for bit (tests/test_torch_accuracy.py).
 """
@@ -57,6 +59,15 @@ def init_lanes(key1: int, key2: int, lanes: int = 8):
         a, b = _np_jump(s0[i - 1:i], s1[i - 1:i])
         s0[i], s1[i] = a[0], b[0]
     return s0, s1
+
+
+def np_stream(key1: int, key2: int, n_draws: int, lanes: int = 8):
+    """n_draws xorshift outputs per lane -> uint64[(n_draws, lanes)]."""
+    s0, s1 = init_lanes(key1, key2, lanes)
+    out = np.zeros((n_draws, lanes), U64)
+    for i in range(n_draws):
+        s0, s1, out[i] = _np_next(s0, s1)
+    return out
 
 
 def avx_part2_lanes(key1: int, key2: int, lanes: int = 4) -> np.ndarray:

@@ -171,9 +171,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 def test_build_finds_sources_and_refuses_without_nvcc(monkeypatch, tmp_path):
     from clover_tpu_torch.kernels import _build
     names = sorted(p.name for p in _build._sources())
-    assert names == ["axpy.cu", "iteration.cu", "mvm.cu", "mvm_batched.cu",
-                     "quantize.cu", "restore.cu", "threshold.cu",
-                     "transpose.cu"]
+    assert names == ["axpy.cu", "dot.cu", "iteration.cu", "mvm.cu",
+                     "mvm_batched.cu", "quantize.cu", "restore.cu",
+                     "threshold.cu", "threshold_hybrid.cu", "transpose.cu"]
     assert len(_build._digest()) == 16 and _build._digest() == _build._digest()
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "-fmad=false" in _build.NVCC_FLAGS
@@ -181,7 +181,8 @@ def test_build_finds_sources_and_refuses_without_nvcc(monkeypatch, tmp_path):
         "clover_quantize_vec", "clover_quantize_mat", "clover_restore_vec",
         "clover_transpose", "clover_mvm", "clover_threshold", "clover_axpy",
         "clover_mvm_batched", "clover_iteration_occupancy",
-        "clover_iteration", "clover_iteration_chain"}
+        "clover_iteration", "clover_iteration_chain", "clover_restore_mat",
+        "clover_dot", "clover_hist4", "clover_mask4"}
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):

@@ -113,6 +113,23 @@ def test_sr_codes_op_order_and_clamp():
                                   np.float32(7.0) / s.numpy())
 
 
+def test_div_fills_float_operands_on_the_device(monkeypatch):
+    """A float operand of the IEEE divide is filled where the tensor lives,
+    never copied from the host: a host-to-device copy of a scalar
+    synchronizes a CUDA stream (the large-n threshold must not)."""
+    s = torch.from_numpy(np.random.default_rng(2).random(4096,
+                                                         dtype=np.float32))
+    want = (s.numpy() / np.float32(7.0), np.float32(127.0) / s.numpy())
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a scalar was copied from the host")
+
+    monkeypatch.setattr(torch, "as_tensor", refuse)
+    monkeypatch.setattr(torch, "tensor", refuse)
+    np.testing.assert_array_equal(_core.div(s, 7.0).numpy(), want[0])
+    np.testing.assert_array_equal(_core.div(127.0, s).numpy(), want[1])
+
+
 @pytest.mark.parametrize("bits", [4, 8])
 def test_sr_unbiased_and_reproducible(rng, bits):
     x = rng.random(2048, dtype=np.float32) * 2 - 1

@@ -1,7 +1,8 @@
-"""clover_tpu_torch threshold (the 4- and 8-bit kernels' plain versions)
-against clover_tpu: exact top-K in golden order (|value| descending, index
-ascending), bit-identical codes, scales untouched -- across tie storms,
-integer-valued data, k > nnz and ragged lengths."""
+"""clover_tpu_torch threshold (the 4- and 8-bit kernels' plain versions,
+and the large-n 4-bit hybrid's) against clover_tpu: exact top-K in golden
+order (|value| descending, index ascending), bit-identical codes, scales
+untouched -- across tie storms, integer-valued data, k > nnz and ragged
+lengths."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -16,7 +17,7 @@ from clover_tpu.kernels.threshold import (threshold4_pallas,
                                           threshold8_pallas,
                                           threshold8_pallas_eligible)
 from clover_tpu.ops.threshold import _threshold4_xla
-from clover_tpu_torch.kernels import threshold8_plain
+from clover_tpu_torch.kernels import threshold4_plain, threshold8_plain
 from clover_tpu_torch.kernels.threshold import golden_keep
 from torch_helpers import assert_same, element_codes, to_torch
 
@@ -154,3 +155,145 @@ def test_threshold16_32_runs_where_the_data_lives(bits):
     assert type(out) is cls and out.length == length
     assert out.values.device.type == "meta" and out.values.dtype == dtype
     assert out.values.shape == (n,)
+
+
+# -- the large-n 4-bit hybrid: hist4 -> exact selector -> mask4 ------------
+
+def _hybrid_cases(rng, n, k):
+    """clover_tpu's hybrid cases (tests/test_ops_extra.py): uniform,
+    integer-valued (tie storms) and k > nnz (tau == 0)."""
+    z = np.zeros(n, np.float32)
+    z[rng.permutation(n)[:max(1, k // 2)]] = 1.0
+    return [rng.random(n, dtype=np.float32) * 2 - 1,
+            rng.integers(-3, 4, n).astype(np.float32), z]
+
+
+@pytest.mark.parametrize("n,k", [(256, 3), (1024, 64), (4096, 257),
+                                 (65536, 64)])
+def test_threshold4_hybrid_matches_jax(rng, monkeypatch, n, k):
+    """The port's hybrid (plain hist4 and mask4, torch selector) gives the
+    bytes of clover_tpu's _threshold4_hybrid, in its XLA and its kernel
+    (interpret) variants: bit-identical codes, scales untouched."""
+    import jax
+    import clover_tpu.kernels.threshold as jax_kernels
+    from clover_tpu.ops.threshold import _threshold4_hybrid as jax_hybrid
+    from clover_tpu_torch.ops.threshold import _threshold4_hybrid
+    cases = _hybrid_cases(rng, n, k)
+    hist4_calls = []
+    real_hist4 = jax_kernels.hist4_pallas
+    monkeypatch.setattr(jax_kernels, "hist4_pallas",
+                        lambda *a: hist4_calls.append(1) or real_hist4(*a))
+    for use_kernels in (False, True):
+        if use_kernels:
+            monkeypatch.setenv("CLOVER_PALLAS", "1")
+        else:
+            monkeypatch.delenv("CLOVER_PALLAS", raising=False)
+        jax.clear_caches()            # the variant is chosen at trace time
+        hist4_calls.clear()
+        for v in cases:
+            jq = ct.quantize(jnp.asarray(v), 4)
+            q = to_torch(jq)
+            got = _threshold4_hybrid(q, k)
+            assert got.scales is q.scales
+            assert_same(got, jax.jit(jax_hybrid, static_argnums=1)(jq, k))
+        # clover_tpu's kernels engage where hist4 has a geometry
+        assert bool(hist4_calls) == (
+            use_kernels and jax_kernels.hist4_geometry(jq.length_pad)
+            is not None)
+
+
+@pytest.mark.parametrize("n", [2048, 65536])
+def test_hist4_matches_jax(rng, n):
+    """hist4_plain against clover_tpu's hist4_pallas (interpret): equal
+    counts (int32 here, f32 holding the same integers there)."""
+    from clover_tpu.kernels.threshold import hist4_geometry, hist4_pallas
+    from clover_tpu_torch.kernels import hist4_plain
+    for v in _hybrid_cases(rng, n, 64):
+        jq = ct.quantize(jnp.asarray(v), 4)
+        assert hist4_geometry(jq.length_pad) is not None
+        want = np.asarray(hist4_pallas(jq.codes, jq.length_pad))
+        got = hist4_plain(to_torch(jq).codes).numpy()
+        assert got.dtype == np.int32 and got.shape == (n // 64, 8)
+        np.testing.assert_array_equal(got, want.astype(np.int32))
+        assert np.all(got.sum(axis=1) == 64)
+
+
+def test_hybrid_select_exact_on_ties():
+    """tau is the largest candidate whose weight at or above it reaches k
+    (0 when the whole multiset fits: keep every nonzero code), fill the
+    ties to keep, offsets the ties of earlier blocks."""
+    from clover_tpu_torch.ops.threshold import hybrid_select
+    hist = torch.zeros(3, 8, dtype=torch.int32)
+    hist[:, 0] = 64
+    hist[0, 7], hist[1, 7], hist[2, 3] = 2, 5, 4      # values 7, 7, 3
+    hist[:, 0] -= hist[:, 1:].sum(dim=1)
+    m7 = torch.tensor([1.0, 1.0, 1.0])
+    for k, tau, fill in ((1, 7.0, 1), (7, 7.0, 7), (8, 3.0, 1),
+                         (10, 3.0, 3), (11, 0.0, 0), (12, 0.0, 1)):
+        t, f, off = hybrid_select(hist, m7, k)
+        assert (float(t), int(f)) == (tau, fill), k
+        ties = [2, 5, 0] if tau == 7.0 else [0, 0, 4] if tau == 3.0 else [0] * 3
+        assert off.tolist() == [0, ties[0], ties[0] + ties[1]]
+    t, f, _ = hybrid_select(hist, m7, 0)
+    assert float(t) == float("inf") and int(f) == 0
+
+
+def test_threshold4_dispatch_rule(rng, monkeypatch):
+    """A 1-D 4-bit vector with 2^19 <= n_pad < 2^24 and k <= 256 takes the
+    hybrid, as clover_tpu does; k = 257, shorter vectors and stacked ones
+    keep the radix select.  Shown by counting the plain functions."""
+    import clover_tpu_torch.ops.threshold as ops_threshold
+    from clover_tpu_torch.ops.threshold import hybrid4_eligible
+    calls = []
+    for name in ("hist4_plain", "mask4_plain", "threshold4_plain"):
+        fn = getattr(ops_threshold, name)
+        monkeypatch.setattr(ops_threshold, name,
+                            lambda *a, _fn=fn, _n=name: calls.append(_n)
+                            or _fn(*a))
+    n = 1 << 19
+    q = tt.quantize(torch.from_numpy(rng.random(n, dtype=np.float32) * 2 - 1),
+                    4)
+    want = {}
+    for k in (64, 256, 257):
+        calls.clear()
+        got = tt.threshold(q, k)
+        want[k] = calls[:]
+        assert int((tt.unpack_nibbles(got.codes) != 0).sum()) == k
+    assert want == {64: ["hist4_plain", "mask4_plain"],
+                    256: ["hist4_plain", "mask4_plain"],
+                    257: ["threshold4_plain"]}
+    calls.clear()
+    assert torch.equal(tt.threshold(q, 200).codes,
+                       ops_threshold.threshold4_plain(q.codes, q.scales, 200))
+    assert calls == ["hist4_plain", "mask4_plain", "threshold4_plain"]
+    for length, ok in ((n - 128, False), (n, True), ((1 << 24) - 128, True),
+                       (1 << 24, False)):
+        assert hybrid4_eligible(tt.zeros_vector(4, length), 64) is ok, length
+    stacked = tt.stack_vectors([tt.zeros_vector(4, n)] * 2)
+    assert not hybrid4_eligible(stacked, 64)
+    assert not hybrid4_eligible(tt.zeros_vector(8, n), 64)
+
+
+def test_hybrid_reaches_its_kernels(monkeypatch):
+    """On CUDA operands the hybrid launches hist4_cuda and mask4_cuda
+    (counting stand-ins here, computing the plain results); the real
+    wrappers refuse CPU tensors."""
+    import clover_tpu_torch.ops.threshold as ops_threshold
+    from clover_tpu_torch.kernels import (hist4_cuda, hist4_plain, mask4_cuda,
+                                          mask4_plain)
+    q = tt.quantize(torch.linspace(-1, 1, 1 << 19), 4)
+    m7 = torch.ones(q.blocks)
+    with pytest.raises(ValueError, match="CUDA"):
+        hist4_cuda(q.codes)
+    with pytest.raises(ValueError, match="CUDA"):
+        mask4_cuda(q.codes, m7, torch.tensor(1.0), torch.tensor(3),
+                   torch.zeros(q.blocks, dtype=torch.int64))
+    calls = []
+    monkeypatch.setattr(ops_threshold, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(ops_threshold, "hist4_cuda",
+                        lambda *a: calls.append("hist4") or hist4_plain(*a))
+    monkeypatch.setattr(ops_threshold, "mask4_cuda",
+                        lambda *a: calls.append("mask4") or mask4_plain(*a))
+    got = tt.threshold(q, 100)
+    assert calls == ["hist4", "mask4"]
+    assert torch.equal(got.codes, threshold4_plain(q.codes, q.scales, 100))
