@@ -33,9 +33,13 @@ and an untraced solve one chained launch per 4 iterations:
   deterministic and SR;
 
 and the validation mode, ``python -m clover_tpu_torch -v``: every op
-against the golden oracle over the default size sweep; and the large-n
-4-bit IHT (2048x524288, K=64), whose threshold is the hybrid (hist4, an
-exact selector in torch, mask4).
+against the golden oracle over the default size sweep; the large-n 4-bit
+IHT (2048x524288, K=64), whose threshold is the hybrid (hist4, an exact
+selector in torch, mask4); the performance mode, ``python -m
+clover_tpu_torch -p --quick``, every op's device time against the card's
+memory rate and the MVM against its probe floor (the dma and salted probe
+kernels); the grid search, ``python -m clover_tpu_torch -g --quick``; and
+a checkpoint round trip.
 
 Phases, each of which raises on failure:
 
@@ -61,9 +65,12 @@ Phases, each of which raises on failure:
    and its plain version (n = 2^19, 2^20, 2^23; K = 1, 64, 256; uniform,
    integer-valued and k > nnz data) and free of host syncs (torch's sync
    debug mode), with the hybrid's split (hist4, selector, mask4) timed
-   beside the radix kernel; device times by CUDA
-   events
-   (median of 5
+   beside the radix kernel; the dma and salted probes bit-identical (4-
+   and 8-bit 8192x16384, 200x300 and the 512 MB stack), with
+   dma_probe_stream's p and bytes; the TF32 pin: with TF32 requested, the
+   16/32-bit tt.mvm, mvm_f32, mvm_sparse and gemm_f32 bit-identical to
+   their TF32-off results and the caller's settings restored; device
+   times by CUDA events (``harness/timing.median_ms``: median of 5
    windows of 20 back-to-back launches queued behind a spin kernel; plain
    versions 3 single calls), and the batched MVM's per-vector time at
    B = 1 ... 32 against single-kernel calls;
@@ -101,7 +108,18 @@ Phases, each of which raises on failure:
     MVM+AXPY legs, one hist4 and one mask4 per iteration, no threshold4),
     the solution bit-identical to an unfused loop through the radix
     threshold kernel, no host sync in the solve, the error (finite),
-    iterations/s and the device's busy share.
+    iterations/s and the device's busy share;
+11. ``-p --quick`` through the CLI: exit 0, every row printed, none but
+    the L2-warm rows above 100% of the card's memory rate, each 4/8-bit
+    MVM row with its % of the probe floor, a launch of every kernel -p
+    reaches, the wall time;
+12. ``-g --quick`` through the CLI: exit 0, a row for every kind (GD and
+    IHT, pure and mixed), size (256, 384) and precision; each kind's
+    4-bit (iterations, mu) at size 256 equal to the same search on the
+    CPU in this process, its quality target within rtol 1e-5; the wall
+    time;
+13. a checkpoint round trip: CUDA containers of every type saved and
+    loaded onto a CUDA ``like``, bytes equal.
 
 The line before the last is ``{"kernels": [...]}``, each kernel with its
 bound: the larger of its bytes (every input read once, every output
@@ -120,6 +138,8 @@ import subprocess
 import sys
 import time
 
+from clover_tpu_torch.harness.timing import HOST_SPIN_CYCLES, median_ms
+
 M, N, K = 8192, 16384, 4096
 NS = 16384                    # the served matrices' side
 BATCH = 8                     # problems of the batched IHT
@@ -133,10 +153,6 @@ SEED = 0
 MVM_SCALE_RTOL = 1e-6
 SOLVE_ERR_TOL = 0.01
 TRACE_TOL = 1e-6
-HOST_SPIN_CYCLES = 1 << 26    # ~40 ms: enough to enqueue 20 calls of an op
-                              # made of ~20 torch launches (the hybrid's)
-SPIN_CYCLES = 1 << 23         # ~4-5 ms at the H100's clocks: time enough to
-                              # enqueue 20 kernel calls or one plain call
 CONFIGS = ("4", "4x8", "8")
 TRACED = {"4": False, "4x8": True, "8": True}
 SMALL = ((4096, 8192), (2048, 4096), (512, 1024))  # whole-iteration sizes
@@ -157,6 +173,16 @@ VALIDATE_KERNELS = ("quantize_mat", "quantize_vec", "transpose4",
                     "transpose8", "mvm4", "mvm8", "threshold4", "threshold8",
                     "restore_vec", "axpy", "iteration", "iteration_chain",
                     "restore_mat", "dot")
+
+# kernels -p --quick must reach (not restore_mat: no -p table restores a
+# matrix), and those -g's unfused probes at sizes 256 and 384 must reach
+PERF_KERNELS = ("quantize_mat", "quantize_vec", "transpose4", "transpose8",
+                "mvm4", "mvm8", "threshold4", "threshold8", "restore_vec",
+                "axpy", "mvm_batched", "iteration", "iteration_chain", "dot",
+                "hist4", "mask4", "dma_probe", "salted_probe")
+SEARCH_KERNELS = ("quantize_mat", "quantize_vec", "transpose4", "transpose8",
+                  "mvm4", "mvm8", "threshold4", "threshold8", "restore_vec")
+SEARCH_RTOL = 1e-5            # -g quality targets, card against CPU
 
 # kernel -> (CUDA source, pallas_call it replaces)
 KERNEL_INFO = {
@@ -191,6 +217,10 @@ KERNEL_INFO = {
               "clover_tpu/kernels/threshold.py:489"),
     "mask4": ("clover_tpu_torch/csrc/threshold_hybrid.cu",
               "clover_tpu/kernels/threshold.py:596"),
+    "dma_probe": ("clover_tpu_torch/csrc/probes.cu",
+                  "clover_tpu/kernels/probes.py:46"),
+    "salted_probe": ("clover_tpu_torch/csrc/probes.cu",
+                     "clover_tpu/kernels/probes.py:80"),
 }
 
 
@@ -208,32 +238,6 @@ def config(name: str):
         return 4, 8, row["iters"], row["mu"], target
     row = tuned.IHT_PURE_FAMILY[(M, N)]
     return 8, 8, *row[8], row["quality_target"]
-
-
-def median_ms(fn, reps: int, inner: int, spin: int = SPIN_CYCLES) -> float:
-    """Median over ``reps`` windows of the mean CUDA-event time of
-    ``inner`` back-to-back calls, after one warm-up call.
-
-    Each window starts behind a spin kernel that keeps the card busy while
-    the host enqueues the window's calls, so the events time the device.
-    Without it a kernel shorter than its host-side launch cost (the
-    threshold, the restore: 1-20 us) is timed at the host's launch rate,
-    which varies between calls by 2x."""
-    import torch
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    times.sort()
-    return times[len(times) // 2]
 
 
 def codes_of(codes, bits: int):
@@ -920,6 +924,128 @@ def without_host_sync(fn, what: str):
         torch.cuda.set_sync_debug_mode("default")
 
 
+def check_probes(rep: Report, qphi, gen):
+    """dma_probe and salted_probe against their plain versions (bit for
+    bit: an int32 band sum plus the salt) on the 4- and 8-bit 8192x16384
+    codes, a ragged 200x300 and the 512 MB stack; dma_probe_stream's p and
+    bytes; the launch probe; times over the 4-bit codes (dma_probe, the
+    Phi leg's stream) and their 512 MB stack (salted_probe)."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch.kernels import probes as pr
+    dev = gen.device
+    salt = torch.full((1,), 0.375, device=dev)
+    ragged = torch.rand(200, 300, generator=gen, device=dev) * 2 - 1
+    cases = [(f"{M}x{N} {b}-bit", qphi[b].codes) for b in (4, 8)]
+    cases += [(f"200x300 {b}-bit", tt.quantize(ragged, b).codes)
+              for b in (4, 8)]
+    q = qphi[4]
+    stacked, p = pr.stacked_codes(q)
+    for what, codes in cases + [(f"{p} x {M}x{N} 4-bit stacked", stacked)]:
+        rep.exact("dma_probe", what, pr.dma_probe_cuda(codes),
+                  pr.dma_probe_plain(codes))
+        rep.exact("salted_probe", f"{what} salt 0.375",
+                  pr.salted_probe_cuda(codes, salt),
+                  pr.salted_probe_plain(codes, salt))
+    make, nbytes, p_stream = pr.dma_probe_stream(q)
+    want_p = -(-pr.RING_BYTES // q.codes.nbytes)
+    if (p_stream, nbytes) != (want_p, want_p * q.codes.nbytes) or \
+            p_stream != p:
+        raise AssertionError(f"dma_probe_stream: p {p_stream}, {nbytes} "
+                             f"bytes; expected p {want_p}")
+    ends = {"dma_probe_stream make(3)": make(3)(),
+            "launch_probe make(3)": pr.launch_probe()(3)(),
+            "dma_probe_call make(3)": pr.dma_probe_call(q)[0](3)()}
+    if not all(math.isfinite(v) for v in ends.values()):
+        raise AssertionError(f"a probe chain ended in a non-finite {ends}")
+    print(f"  probes        dma_probe_stream: p = {p_stream}, {nbytes} bytes "
+          f"stacked; " + ", ".join(f"{k} -> {v:.7g}" for k, v in
+                                   ends.items()))
+    rep.time("dma_probe", lambda: pr.dma_probe_cuda(q.codes),
+             lambda: pr.dma_probe_plain(q.codes),
+             q.codes.nbytes + 4 * (M // 64))
+    rep.time("salted_probe", lambda: pr.salted_probe_cuda(stacked, salt),
+             lambda: pr.salted_probe_plain(stacked, salt),
+             stacked.nbytes + 4 + 4 * (stacked.shape[0] // 64))
+    one = torch.ones(64, 128, dtype=torch.int8, device=dev)
+    print(f"  salted_probe  launch probe (one 64x128 tile): kernel "
+          f"{median_ms(lambda: pr.salted_probe_cuda(one, salt), 5, 20):.4f} "
+          f"ms")
+
+
+def matmul_settings():
+    """The caller's TF32 switches and fp32 matmul precision."""
+    import torch
+    try:
+        precision = torch.get_float32_matmul_precision()
+    except RuntimeError as e:          # legacy and new switches mixed
+        precision = f"unreadable ({e})"
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32, precision)
+
+
+def set_tf32(on: bool):
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+    torch.set_float32_matmul_precision("high" if on else "highest")
+
+
+def check_tf32(phi, gen):
+    """With TF32 requested by the caller, the port's f32 products (16- and
+    32-bit tt.mvm, mvm_f32 of a 4-bit matrix and an f32 vector,
+    mvm_sparse, and gemm_f32 with 8 columns) equal their results with TF32
+    off bit for bit, and the caller's settings come back."""
+    import torch
+    import clover_tpu_torch as tt
+    dev = phi.device
+    x = torch.rand(N, generator=gen, device=dev) * 2 - 1
+    q4 = tt.quantize(phi, 4)
+    q16, q32 = tt.quantize(phi, 16), tt.quantize(phi, 32)
+    x16, x32 = tt.quantize(x, 16), tt.quantize(x, 32)
+    at = tt.transpose(tt.quantize(phi, 8))
+    xs = tt.threshold(tt.quantize(x, 8), K)
+    b = torch.rand(N, 8, generator=gen, device=dev) * 2 - 1
+    cases = {
+        "tt.mvm 16-bit": lambda: tt.mvm(q16, x16).values,
+        "tt.mvm 32-bit": lambda: tt.mvm(q32, x32).values,
+        "mvm_f32 4-bit A, f32 x": lambda: tt.mvm_f32(q4, x32),
+        "mvm_sparse 8-bit, K nonzeros": lambda: (lambda y: torch.cat(
+            [y.codes.view(torch.uint8), y.scales.view(torch.uint8)]))(
+                tt.mvm_sparse(at, xs, K)),
+        "gemm_f32 4-bit A, 8 columns": lambda: tt.gemm_f32(q4, b),
+    }
+    before = matmul_settings()
+    try:
+        set_tf32(False)
+        want = {name: fn() for name, fn in cases.items()}
+        set_tf32(True)
+        asked = matmul_settings()
+        got = {name: fn() for name, fn in cases.items()}
+        after = matmul_settings()
+        bare = q32.values @ b             # a product outside the pin
+        set_tf32(False)
+        ieee = q32.values @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before[0]
+        if not before[2].startswith("unreadable"):
+            torch.set_float32_matmul_precision(before[2])
+        torch.backends.cudnn.allow_tf32 = before[1]
+    for name in cases:
+        g, w = got[name].contiguous(), want[name].contiguous()
+        if not torch.equal(g.view(torch.uint8), w.view(torch.uint8)):
+            raise AssertionError(f"{name}: with TF32 requested the result "
+                                 f"differs from the IEEE one")
+        print(f"  tf32          {name:32s} bit-identical with TF32 "
+              f"requested")
+    if after != asked:
+        raise AssertionError(f"settings {asked} came back as {after}")
+    print(f"  tf32          caller's settings {asked} restored; a bare "
+          f"product with TF32 on differs from IEEE by "
+          f"{float((bare - ieee).abs().max()):.3g} (the pin's reason)")
+
+
+
 def phase_kernels(rep: Report, phi, mats, gen):
     """Every kernel against its plain version, on the main paths' shapes."""
     import torch
@@ -946,6 +1072,8 @@ def phase_kernels(rep: Report, phi, mats, gen):
     check_restore_mat(rep, phi, gen)
     check_dot(rep, gen)
     check_hybrid(rep, gen)
+    check_probes(rep, qphi, gen)
+    check_tf32(phi, gen)
 
 
 def recovery_error(x, x_star) -> float:
@@ -1614,6 +1742,214 @@ def phase_large_iht():
     return counts
 
 
+def perf_quick_rows() -> list[str]:
+    """The names of every rate row ``-p --quick`` prints, in order."""
+    from clover_tpu_torch.harness import perf
+    vec, mvm = perf.VEC_SIZES[:2], perf.MVM_SIZES[:2]
+    rows = [f"quantize {b:2d}-bit n={n}" for n in vec for b in (4, 8, 16, 32)]
+    rows += [f"restore {b:2d}-bit n={n}" for n in vec for b in (4, 8, 16)]
+    rows += [f"dot {b:2d}-bit n={n}" for n in vec for b in (32, 4, 8, 16)]
+    rows += [f"scaleAndAdd {b:2d}-bit n={n}" for n in vec
+             for b in (32, 4, 8, 16)]
+    for n in perf.WARM_SIZES:
+        rows += [f"L2-warm dot 32-bit n={n}", f"L2-warm axpy 32-bit n={n}"]
+        rows += [f"L2-warm {op} {b:2d}-bit n={n}" for b in (4, 8)
+                 for op in ("dot", "axpy")]
+    rows += [f"{'L2-warm ' if n <= perf.WARM_THRESHOLD_N else ''}threshold "
+             f"{b:2d}-bit n={n}" for n in vec for b in (4, 8, 16, 32)]
+    for n in mvm:
+        rows.append(f"mvm 32-bit (matmul) n={n}")
+        for ba, bxs in ((4, (4, 8)), (8, (8,)), (16, (16,))):
+            if ba < 16:
+                rows += [f"dma probe {ba}-bit n={n}",
+                         f"dma probe stream {ba}-bit n={n}"]
+            rows += [f"mvm {ba:2d}x{bx:2d}-bit n={n}" for bx in bxs]
+    rows += [f"transpose {b:2d}-bit n={n}" for n in mvm
+             for b in (32, 4, 8, 16)]
+    m, n = perf.IHT_SIZES[0]
+    rows += [f"IHT {name:>4s}-bit {m}x{n}" for name, _, _ in perf.IHT_CONFIGS]
+    return rows
+
+
+def perf_rows(out: str) -> dict:
+    """-> {row name: (% of spec, the probe-floor line after it or None)}
+    of every rate row in -p's output."""
+    lines = out.splitlines()
+    rates = {}
+    for i, line in enumerate(lines):
+        if " ms " in line and " GB/s " in line:
+            floor = lines[i + 1] if i + 1 < len(lines) else ""
+            rates[line[:36].strip()] = (
+                line.split(" GB/s ")[1].split()[0],
+                floor if "probe floor" in floor else None)
+    return rates
+
+
+def phase_perf():
+    """``-p --quick`` through the CLI: every row printed, none but the
+    L2-warm ones above the card's memory rate, each 4/8-bit MVM row beside
+    its probe floor, and a launch of every kernel -p reaches; -> the
+    launch counts."""
+    import torch
+    from clover_tpu_torch import kernels
+    print("== 11. python -m clover_tpu_torch -p --quick: every op against "
+          "the card's memory rate and the probe floor")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = cli_output(["-p", "--quick"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    print(out.rstrip())
+    lines = out.splitlines()
+    rates = perf_rows(out)
+    want = perf_quick_rows()
+    missing = [name for name in want if name not in rates]
+    if missing or len(rates) != len(want):
+        raise AssertionError(f"-p --quick: rows missing {missing}; "
+                             f"{len(rates)} printed, {len(want)} expected")
+    for name, (pct, floor) in rates.items():
+        warm = name.startswith("L2-warm")
+        if warm != (pct == "L2") or (not warm and not (
+                pct.endswith("%") and float(pct[:-1]) <= 100.0)):
+            raise AssertionError(f"-p row {name!r}: % of spec {pct}")
+        bits_a = (name.split("x")[0].split()[-1]
+                  if name.startswith("mvm ") and "matmul" not in name
+                  else None)
+        if bits_a in ("4", "8") and (
+                floor is None or f"of the {bits_a}-bit probe floor" not in
+                floor):
+            raise AssertionError(f"-p row {name!r}: no probe floor line")
+    floors = sum("probe floor" in line for line in lines)
+    if floors != 6 or not any(line.startswith("launch probe")
+                              for line in lines):
+        raise AssertionError(f"-p: {floors} probe-floor lines (6 expected) "
+                             f"or no launch probe line")
+    idle = [k for k in PERF_KERNELS if counts[k] == 0]
+    print(f"  -p --quick: {len(rates)} rows, exit 0, every row that is not "
+          f"L2-warm at or below 100% of spec, {floors} MVM rows against the "
+          f"probe floor; wall {wall:.2f} s")
+    print(f"  launches {counts}")
+    if idle:
+        raise AssertionError(f"-p launched no {idle} kernel")
+    return counts
+
+
+def search_tables(out: str) -> dict:
+    """-> {kind: {(bits, m, n): (iters, mu, target)}} from -g's tables."""
+    tables, kind = {}, None
+    for line in out.splitlines():
+        if line.startswith("=== "):
+            kind = line.strip("= ")
+            tables[kind] = {}
+        elif kind and line.split()[:1] in (["4"], ["8"], ["16"], ["32"]):
+            bits, m, n, _, it, mu, target = line.split()
+            tables[kind][int(bits), int(m), int(n)] = (it, mu, target)
+    return tables
+
+
+def phase_search():
+    """``-g --quick`` through the CLI: a row for every kind, size and
+    precision; each kind's 4-bit column at the first size against the same
+    search_family run on the CPU in this process; -> the launch counts."""
+    import torch
+    from clover_tpu_torch import kernels
+    from clover_tpu_torch.harness import search
+    sizes = search.SEARCH_SIZES_FULL[:2]
+    kinds = ("gd", "iht", "gd_mixed", "iht_mixed")
+    print(f"== 12. python -m clover_tpu_torch -g --quick: sizes {sizes}, "
+          f"{', '.join(kinds)}")
+    card = {}
+    real = search.run_search_full
+
+    def keep(**kwargs):
+        card.update(real(**kwargs))
+        return card
+    search.run_search_full = keep          # the CLI's rows, unrounded
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = cli_output(["-g", "--quick"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        search.run_search_full = real
+    counts = kernels.launch_counts()
+    print(out.rstrip())
+    tables = search_tables(out)
+    for kind in kinds:
+        got = sorted(tables.get(kind, {}))
+        want = sorted((b, r["m"], r["n"]) for r in card[kind]
+                      for b in (4, 8, 16, 32))
+        if len(got) != 2 * 4 or got != want or any(
+                c is None for r in card[kind] for c in r["cols"].values()):
+            raise AssertionError(f"-g {kind}: rows {got}, columns "
+                                 f"{[r['cols'] for r in card[kind]]}")
+    print(f"  -g --quick: {len(kinds)} kinds x {len(sizes)} sizes x 4 "
+          f"precisions printed, exit 0; wall {wall:.2f} s")
+    t1 = time.perf_counter()
+    for kind in kinds:
+        cpu = search.search_family(kind, sizes[0], log=lambda *a: None,
+                                   device="cpu")
+        got = card[kind][0]
+        rel = abs(got["quality_target"] - cpu["quality_target"]) / \
+            cpu["quality_target"]
+        print(f"  {kind:9s} size {sizes[0]}: 4-bit (iterations, mu) card "
+              f"{got['cols'][4]}, CPU {cpu['cols'][4]}; quality target card "
+              f"{got['quality_target']:.9g}, CPU {cpu['quality_target']:.9g} "
+              f"(rtol {rel:.3g})")
+        if got["cols"][4] != cpu["cols"][4] or not rel <= SEARCH_RTOL:
+            raise AssertionError(f"-g {kind}: the card's 4-bit column "
+                                 f"differs from the CPU's")
+    print(f"  the CPU's four searches at size {sizes[0]}: "
+          f"{time.perf_counter() - t1:.2f} s")
+    print(f"  launches {counts}")
+    idle = [k for k in SEARCH_KERNELS if counts[k] == 0]
+    if idle:
+        raise AssertionError(f"-g launched no {idle} kernel")
+    return counts
+
+
+def phase_checkpoint(gen):
+    """CUDA containers of every type saved and loaded onto a CUDA ``like``:
+    every tensor back on the card, bytes equal."""
+    import os
+    import tempfile
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch.utils import checkpoint
+    print("== 13. checkpoint round trip on the card")
+    a = torch.rand(1000, 3000, generator=gen, device="cuda") * 2 - 1
+    state = {f"mat{b}": tt.quantize(a, b) for b in (4, 8, 16, 32)}
+    state |= {f"vec{b}": tt.quantize(a[0], b) for b in (4, 8, 16, 32)}
+    state |= {"trace": torch.rand(50, device="cuda"), "step": 50}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "state.pt")
+        checkpoint.save(path, state)
+        size = os.path.getsize(path)
+        got = checkpoint.load(path, like=state)
+    tensors = 0
+    for name, want in state.items():
+        pairs = ([(got[name], want)] if not hasattr(want, "__dataclass_fields__")
+                 else [(getattr(got[name], f), getattr(want, f))
+                       for f in want.__dataclass_fields__])
+        for g, w in pairs:
+            if isinstance(w, torch.Tensor):
+                tensors += 1
+                if g.device != w.device or not torch.equal(
+                        g.contiguous().view(torch.uint8),
+                        w.contiguous().view(torch.uint8)):
+                    raise AssertionError(f"checkpoint: {name} came back "
+                                         f"changed or off the card")
+            elif g != w:
+                raise AssertionError(f"checkpoint: {name} {g} != {w}")
+    print(f"  {len(state)} entries ({tensors} tensors, {size} bytes): every "
+          f"tensor back on {a.device}, bytes equal")
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1637,6 +1973,9 @@ def main() -> int:
     runs.append(phase_accuracy())
     runs.append(phase_validate())
     runs.append(phase_large_iht())
+    runs.append(phase_perf())
+    runs.append(phase_search())
+    phase_checkpoint(torch.Generator(device="cuda").manual_seed(SEED + 5))
     launches = {kernel: sum(run[kernel] for run in runs)
                 for kernel in KERNEL_INFO}
     for kernel, n in launches.items():

@@ -17,6 +17,9 @@ from .iteration import (
 )
 from .mvm import axpy_plain, mvm4_cuda, mvm4_plain, mvm8_cuda, mvm8_plain
 from .mvm_batched import MAX_BATCH, mvm_batched_cuda, mvm_batched_plain
+from .probes import (
+    dma_probe_cuda, dma_probe_plain, salted_probe_cuda, salted_probe_plain,
+)
 from .quantize import (
     quantize_mat_cuda, quantize_mat_plain, quantize_vec_cuda,
     quantize_vec_plain,
@@ -51,6 +54,8 @@ KERNELS = {
     "dot": dot_cuda,
     "hist4": hist4_cuda,
     "mask4": mask4_cuda,
+    "dma_probe": dma_probe_cuda,
+    "salted_probe": salted_probe_cuda,
 }
 
 
@@ -82,4 +87,6 @@ __all__ = [
     "iteration_cuda", "iteration_plain", "iteration_eligible",
     "iteration_chain_cuda", "iteration_chain_plain",
     "iteration_chain_eligible",
+    "dma_probe_cuda", "dma_probe_plain",
+    "salted_probe_cuda", "salted_probe_plain",
 ]

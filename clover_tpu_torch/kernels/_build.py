@@ -1,9 +1,10 @@
 """Build the CUDA kernels with nvcc on first use and bind them with ctypes.
 
-``clover_tpu_torch/csrc/*.cu`` compile in one ``nvcc`` call into a shared
-library with a plain C interface, under ``build/clover_tpu_torch/`` beside
-the package.  The file name carries a hash of the sources and flags, so an
-edited source builds anew and an unchanged one loads at once.  Each C entry
+``clover_tpu_torch/csrc/*.cu`` compile with one ``nvcc`` per source, all
+started together, and link into a shared library with a plain C interface,
+under ``build/clover_tpu_torch/`` beside the package.  The file name
+carries a hash of the sources and flags, so an edited source builds anew
+and an unchanged one loads at once.  Each C entry
 point returns ``cudaGetLastError()`` after its launch; :func:`launch`
 raises when that is not 0.  A missing ``nvcc`` or a failed build raises.
 """
@@ -25,8 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "clover_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _U32, _F32 = ctypes.c_uint32, ctypes.c_float
@@ -51,6 +51,8 @@ SIGNATURES = {
                          _I32, _P),
     "clover_iteration_chain": (*(_P,) * 15, _I64, _I64, _F32, _I64, _I32,
                                _I32, _I32, _P, _P, _I32, _P),
+    "clover_dma_probe": (_P, _P, _I64, _I64, _P),
+    "clover_salted_probe": (_P, _P, _P, _I64, _I64, _P),
 }
 
 
@@ -85,6 +87,46 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(commands: list[list[str]], tmp: Path) -> str:
+    """Start every command at once, each writing its output to a file in
+    ``tmp``; wait for all; -> their joined output; raise if one failed."""
+    procs = []
+    for i, argv in enumerate(commands):
+        log = open(tmp / f"{i}.log", "w+")
+        procs.append((argv, log, subprocess.Popen(
+            argv, stdout=log, stderr=subprocess.STDOUT, text=True)))
+    outs, failed = [], []
+    for argv, log, proc in procs:
+        rc = proc.wait()
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+        if rc != 0:
+            failed.append(f"{' '.join(argv)} ({rc}):\n{outs[-1][-4000:]}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(outs)
+
+
+def _compile_and_link(path: Path) -> str:
+    """One nvcc per source, all started together, then one link into
+    ``path``; -> nvcc's output (ptxas' per-kernel report)."""
+    nvcc = _nvcc()
+    tmp = path.with_suffix(f".tmp{os.getpid()}")
+    tmp.mkdir(exist_ok=True)
+    try:
+        objs = [tmp / f"{src.stem}.o" for src in _sources()]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(_sources(), objs)], tmp)
+        lib = tmp / "lib.so"
+        log += _run_all([[nvcc, "-shared", "-o", str(lib),
+                          *map(str, objs)]], tmp)
+        os.replace(lib, path)
+        return log
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 @functools.cache
 def library() -> Library:
     """Build (once per source hash) and load the kernels' library."""
@@ -93,17 +135,10 @@ def library() -> Library:
     log_path = path.with_suffix(".log")
     seconds = 0.0
     if not path.is_file():
-        tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        log = _compile_and_link(path)
         seconds = time.perf_counter() - t0
-        log_path.write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
-        os.replace(tmp, path)
+        log_path.write_text(log)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

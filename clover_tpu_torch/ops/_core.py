@@ -6,9 +6,15 @@ Every quotient divides a tensor by a tensor of its own shape: torch computes
 ``tensor / scalar`` as a product with the reciprocal, and either can miss
 the IEEE quotient by one ulp.  The kernels divide in IEEE, so the plain
 versions must too.
+
+Every f32 matrix product runs inside :func:`ieee_fp32`, the counterpart of
+clover_tpu's ``Precision.HIGHEST``: a caller's TF32 setting does not reach
+it.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -19,6 +25,35 @@ _QMAX = {4: 7.0, 8: 127.0}
 
 def qmax(bits: int) -> float:
     return _QMAX[bits]
+
+
+@contextlib.contextmanager
+def ieee_fp32():
+    """Run the body with IEEE fp32 matrix products, then restore the
+    caller's TF32 settings, also when the body raises.
+
+    Sets ``torch.backends.cuda.matmul.allow_tf32`` and
+    ``torch.backends.cudnn.allow_tf32`` to False and the fp32 matmul
+    precision to "highest".  A caller who mixed the legacy switch with
+    ``set_float32_matmul_precision`` leaves a precision that torch refuses
+    to read; then only the two switches are restored."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    cudnn = torch.backends.cudnn.allow_tf32
+    try:
+        precision = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        precision = None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        # the legacy switch first: setting it rewrites the precision
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        if precision is not None:
+            torch.set_float32_matmul_precision(precision)
+        torch.backends.cudnn.allow_tf32 = cudnn
 
 
 def div(num, den: torch.Tensor) -> torch.Tensor:

@@ -26,8 +26,10 @@ def scale_and_add(u, v, a, generator=None):
         raise TypeError(f"precision mismatch: {type(u).__name__} vs "
                         f"{type(v).__name__}")
     if isinstance(u, (QVec16, QVec32)):
-        x = restore_vec(u).values + torch.tensor(
-            a, dtype=torch.float32, device=u.values.device) * restore_vec(v).values
+        # alpha filled on the device: a copy from the host would
+        # synchronize the stream on every call
+        x = restore_vec(u).values + torch.full(
+            (), a, dtype=torch.float32, device=u.values.device) * restore_vec(v).values
         if isinstance(u, QVec32):
             return QVec32(values=x, length=u.length)
         return QVec16(values=x.to(torch.float16), length=u.length)

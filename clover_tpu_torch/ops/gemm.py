@@ -78,16 +78,19 @@ def gemm_f32(A, B: torch.Tensor) -> torch.Tensor:
     For a 4/8-bit A, per 64-column block the codes (exact in f32) meet B's
     rows in one batched product, and the (nb, m, r) partials are then
     scaled by the tile's s/qmax and summed over blocks, clover_tpu's order;
-    no restored copy of A is formed.
+    no restored copy of A is formed.  The products run in IEEE fp32
+    (``_core.ieee_fp32``), whatever the caller's TF32 setting.
     """
     if isinstance(A, (QMat16, QMat32)):
-        return A.values.to(torch.float32) @ B.to(torch.float32)
+        with _core.ieee_fp32():
+            return A.values.to(torch.float32) @ B.to(torch.float32)
     m, n = A.rows_pad, A.cols_pad
     nb = n // BLOCK
     codes = unpack_nibbles(A.codes) if isinstance(A, QMat4) else A.codes
     a3 = codes.reshape(m, nb, BLOCK).transpose(0, 1).to(torch.float32)
     b3 = B.reshape(nb, BLOCK, -1).to(torch.float32)
-    part = torch.bmm(a3, b3)                                  # (nb, m, r)
     se = _core.div(A.scales, _core.qmax(A.bits)).repeat_interleave(
         BLOCK, 0).T                                           # (nb, m)
-    return torch.einsum("bmr,bm->mr", part, se)
+    with _core.ieee_fp32():
+        part = torch.bmm(a3, b3)                              # (nb, m, r)
+        return torch.einsum("bmr,bm->mr", part, se)

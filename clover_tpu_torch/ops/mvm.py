@@ -19,6 +19,7 @@ from ..kernels.dispatch import on_cuda, seed_from
 from ..kernels.mvm import (
     blocked_products, mvm4_cuda, mvm4_plain, mvm8_cuda, mvm8_plain,
 )
+from . import _core
 from .axpy import scale_and_add
 from .quantize import quantize_vec, restore_mat, restore_vec
 
@@ -42,7 +43,8 @@ def mvm_f32(A, x) -> torch.Tensor:
         else restore_mat(A).values
     xf = x.values.to(torch.float32) if isinstance(x, (QVec16, QVec32)) \
         else restore_vec(x).values
-    return af @ xf
+    with _core.ieee_fp32():
+        return af @ xf
 
 
 def _fused(A, x):

@@ -6,9 +6,9 @@ x_j * PhiT[j, :] over the K nonzero j, rows of the materialized transpose.
 ``torch.topk`` picks the K entries, the K rows of AT are gathered and
 dequantized (``code * (s/qmax)``, the restore's op order), and one f32
 ``vals @ rows`` product gives y: O(K n) bytes instead of O(m n).  The
-product is a plain matmul, as clover_tpu leaves it to XLA, with TF32 off
-(the caller's ``torch.backends.cuda.matmul.allow_tf32``; the CLI turns it
-off).
+product is a plain matmul, as clover_tpu leaves it to XLA, pinned to IEEE
+fp32 (``_core.ieee_fp32``, clover_tpu's ``Precision.HIGHEST``) whatever the
+caller's TF32 setting.
 """
 
 from __future__ import annotations
@@ -47,7 +47,8 @@ def mvm_sparse(AT, x, k: int, generator=None):
         rows = codes.to(torch.float32) * mult.repeat_interleave(BLOCK, dim=1)
     else:
         rows = AT.values[idx].to(torch.float32)
-    y32 = vals @ rows
+    with _core.ieee_fp32():
+        y32 = vals @ rows
     return _requant_output(y32, AT.cols, _out_bits_sparse(AT, x), generator)
 
 

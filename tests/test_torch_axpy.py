@@ -112,3 +112,20 @@ def test_scale_and_add_refuses_mismatches():
         tt.scale_and_add(u4, tt.quantize(torch.ones(256), 8), 1.0)
     with pytest.raises(ValueError):
         tt.scale_and_add(u4, tt.quantize(torch.ones(384), 4), 1.0)
+
+
+@pytest.mark.parametrize("bits", [16, 32])
+def test_fp_scale_and_add_copies_nothing_from_the_host(rng, monkeypatch,
+                                                       bits):
+    """alpha is filled on the tensors' device: a host copy of it
+    (torch.tensor) would synchronize the card's stream on every call."""
+    ju, jv = _pair(rng, 1000, bits)
+    want = ct.scale_and_add(ju, jv, -0.37)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.tensor called: a host-to-device copy")
+    monkeypatch.setattr(torch, "tensor", refuse)
+    got = tt.scale_and_add(to_torch(ju), to_torch(jv), -0.37)
+    np.testing.assert_array_equal(
+        got.values.numpy(), np.asarray(want.values).view(
+            got.values.numpy().dtype))

@@ -6,6 +6,8 @@ Containers cross between the packages as NumPy copies of their leaves
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
+import torch
 
 import clover_tpu as ct
 from clover_tpu_torch.interop import from_numpy, to_numpy
@@ -54,3 +56,14 @@ def assert_within_lsb(got, want, rtol=1e-5):
     assert (kg, mg) == (kw, mw)
     assert np.abs(element_codes(got) - element_codes(want)).max() <= 1
     np.testing.assert_allclose(sg, sw, rtol=rtol)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for a module of many small solves (import it
+    into the module): the suite's workers share the cores, and more
+    threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
