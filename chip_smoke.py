@@ -38,8 +38,11 @@ IHT (2048x524288, K=64), whose threshold is the hybrid (hist4, an exact
 selector in torch, mask4); the performance mode, ``python -m
 clover_tpu_torch -p --quick``, every op's device time against the card's
 memory rate and the MVM against its probe floor (the dma and salted probe
-kernels); the grid search, ``python -m clover_tpu_torch -g --quick``; and
-a checkpoint round trip.
+kernels); the grid search, ``python -m clover_tpu_torch -g --quick``; a
+checkpoint round trip; and the sharded path (clover_tpu_torch.parallel):
+8 ranks sharing the card on a 2x4 mesh over gloo (the sharded IHT and GD,
+the sharded MVMServer, ``-p --sharded``'s rows), then ``-p --sharded``
+on a 1x1 mesh in this process.
 
 Phases, each of which raises on failure:
 
@@ -67,7 +70,11 @@ Phases, each of which raises on failure:
    debug mode), with the hybrid's split (hist4, selector, mask4) timed
    beside the radix kernel; the dma and salted probes bit-identical (4-
    and 8-bit 8192x16384, 200x300 and the 512 MB stack), with
-   dma_probe_stream's p and bytes; the TF32 pin: with TF32 requested, the
+   dma_probe_stream's p and bytes; the f32-output modes bit-identical
+   (mvm_f32 4x4, 4x8, 8x8 at 8192x16384, on a 4096x4096 shard's block and
+   on 64-multiple ragged blocks; mvm_batched_f32 at B = 2, 8, 32 on
+   16384x16384, B = 8 at 8192x16384, B = 3 on a ragged block); the TF32
+   pin: with TF32 requested, the
    16/32-bit tt.mvm, mvm_f32, mvm_sparse and gemm_f32 bit-identical to
    their TF32-off results and the caller's settings restored; device
    times by CUDA events (``harness/timing.median_ms``: median of 5
@@ -119,7 +126,25 @@ Phases, each of which raises on failure:
     CPU in this process, its quality target within rtol 1e-5; the wall
     time;
 13. a checkpoint round trip: CUDA containers of every type saved and
-    loaded onto a CUDA ``like``, bytes equal.
+    loaded onto a CUDA ``like``, bytes equal;
+14. the sharded path: 8 spawned ranks on the one card (gloo, since NCCL
+    refuses two ranks on one GPU), a 2x4 mesh, each rank building the
+    same 8192x16384 problem (a checksum all_reduce shows the copies
+    equal): the exact-integer mvm_psum bit-identical to the integer
+    product; an SR requant's col replicas equal; one exact sharded
+    iteration bit-identical to this process's single-device iteration;
+    the sharded IHT (4, 4x8, 8-bit) and the mixed 4x8 GD at their tuned
+    mu and iterations, traced, each trace within the regime rule of
+    tests/test_parallel.py against the single solve and every rank's
+    solution the same bytes; the 4-bit IHT's iterations/s and a per-leg
+    split; a sharded MVMServer on 16384x16384 (4x4, 4x8, 8x8; bursts from
+    4 client threads on rank 0; every result within 1 LSB of tt.mvm,
+    scales within rtol 1e-6; requests/s, p50/p99); ``-p --sharded``'s
+    rows on the 2x4 mesh.  The ranks send back their launch counts.
+    These times measure 8 processes time-slicing one card and gloo's
+    host-staged collectives, not a multi-GPU node;
+15. ``-p --sharded --quick`` through the CLI: a world of one, a 1x1 mesh;
+    every row, and the sharded IHT bit-identical to the single solve.
 
 The line before the last is ``{"kernels": [...]}``, each kernel with its
 bound: the larger of its bytes (every input read once, every output
@@ -138,7 +163,8 @@ import subprocess
 import sys
 import time
 
-from clover_tpu_torch.harness.timing import HOST_SPIN_CYCLES, median_ms
+from clover_tpu_torch.harness.timing import (HOST_SPIN_CYCLES, median_ms,
+                                              wall_time)
 
 M, N, K = 8192, 16384, 4096
 NS = 16384                    # the served matrices' side
@@ -221,7 +247,20 @@ KERNEL_INFO = {
                   "clover_tpu/kernels/probes.py:46"),
     "salted_probe": ("clover_tpu_torch/csrc/probes.cu",
                      "clover_tpu/kernels/probes.py:80"),
+    "mvm_f32": ("clover_tpu_torch/csrc/mvm.cu",
+                "clover_tpu/kernels/mvm.py:705"),
+    "mvm_batched_f32": ("clover_tpu_torch/csrc/mvm_batched.cu",
+                        "clover_tpu/kernels/mvm_batched.py:390"),
 }
+F32_BATCHES = (2, 8, 32)      # mvm_batched_f32 checks at NS x NS
+SHARD = (M // 2, N // 4)      # a 2x4 mesh's block of the M x N matrix
+# the other blocks phase 14 gives the f32 modes on its 2x4 mesh: the
+# served NS x NS matrices' (batches of 1 take mvm_f32, 2-32 the batched
+# kernel), and -p --sharded's: the n=4096 mvm_psum, the 2048x4096 IHT's
+# Phi and PhiT legs, the overlapped psum's 4 column chunks
+SERVER_SHARD = (NS // 2, NS // 4)
+SERVER_BATCHES = (1, 2, 8, 32)
+PERF_SHARDS = ((2048, 1024), (1024, 1024), (2048, 256))
 
 
 @functools.cache
@@ -444,6 +483,96 @@ def check_mvm(rep: Report, qphi, phit, qy, qx, modes):
         rep.time_leg(mode, "Phi", lambda: cuda(*leg1, 1, True, 2, True))
         rep.time_leg(mode, "PhiT", lambda: cuda(*leg2, 1, True, 2, True))
     return iterates
+
+
+def f32_operands(a, x, bits_a: int, bits_x: int, shape=None):
+    """(codes, scales) of a bits_a-bit matrix and bits_x-bit vectors x
+    (1-D, or a stack), cut to ``shape`` = (rows, cols), multiples of 64
+    (a shard's block; the quantizers pad to 128)."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch.formats import pad_to
+    qa = a if isinstance(a, tt.QMat4 | tt.QMat8) else tt.quantize(a, bits_a)
+    m, n = shape or (qa.rows_pad, qa.cols_pad)
+    ac = qa.codes[:m, :n * bits_a // 8].contiguous()
+    asc = qa.scales[:m // 64, :n // 64].contiguous()
+    rows = x if x.dim() == 2 else x[None]
+    xq = [tt.quantize(torch.nn.functional.pad(r, (0, pad_to(n) - r.shape[0]))
+                      if r.shape[0] < n else r[:n], bits_x) for r in rows]
+    xc = torch.stack([q.codes[:n * bits_x // 8] for q in xq]).contiguous()
+    xs = torch.stack([q.scales[:n // 64] for q in xq]).contiguous()
+    return ac, asc, (xc if x.dim() == 2 else xc[0]), \
+        (xs if x.dim() == 2 else xs[0])
+
+
+def check_mvm_f32(rep: Report, qphi, mats, gen):
+    """The f32-output modes: mvm_f32 (4x4, 4x8, 8x8) at M x N, on every
+    block phase 14 gives it (SHARD, SERVER_SHARD, PERF_SHARDS) and on
+    64-multiple ragged blocks, and mvm_batched_f32 at NS x NS (B = 2, 8,
+    32), M x N (B = 8), the served matrices' block (SERVER_BATCHES) and a
+    ragged block (B = 3), all bit-identical to their plain versions; times
+    of the single mode at M x N and on the shard, and of the batched mode
+    at M x N, B = BATCH."""
+    import torch
+    from clover_tpu_torch.kernels import (mvm_batched_f32_cuda,
+                                          mvm_batched_f32_plain,
+                                          mvm_f32_cuda, mvm_f32_plain)
+    dev = gen.device
+    xf = torch.rand(max(32, BATCH), NS, generator=gen, device=dev) * 2 - 1
+    ragged = torch.rand(200, 300, generator=gen, device=dev) * 2 - 1
+    for bits_a, bits_x in MODES:
+        mode = f"{bits_a}x{bits_x}"
+        cases = [(f"{M}x{N}", qphi[bits_a], None),
+                 (f"{SHARD[0]}x{SHARD[1]} shard", qphi[bits_a], SHARD),
+                 (f"{SERVER_SHARD[0]}x{SERVER_SHARD[1]} server shard",
+                  mats[bits_a], SERVER_SHARD),
+                 *((f"{r}x{c} -p shard", qphi[bits_a], (r, c))
+                   for r, c in PERF_SHARDS),
+                 ("192x320 block", ragged, (192, 320)),
+                 ("200x300 padded", ragged, None)]
+        for shape, a, cut in cases:
+            ops = f32_operands(a, xf[0], bits_a, bits_x, cut)
+            rep.exact("mvm_f32", f"{mode} {shape}", mvm_f32_cuda(
+                bits_a, bits_x, *ops), mvm_f32_plain(bits_a, bits_x, *ops))
+        bcases = [(f"{NS}x{NS} B={b}", mats[bits_a], xf[:b], None)
+                  for b in F32_BATCHES]
+        bcases += [(f"{M}x{N} B={BATCH}", qphi[bits_a], xf[:BATCH, :N], None),
+                   ("192x320 block B=3", ragged, xf[:3, :320], (192, 320))]
+        bcases += [(f"{SERVER_SHARD[0]}x{SERVER_SHARD[1]} server shard B={b}",
+                    mats[bits_a], xf[:b], SERVER_SHARD)
+                   for b in SERVER_BATCHES]
+        for shape, a, x, cut in bcases:
+            ops = f32_operands(a, x, bits_a, bits_x, cut)
+            rep.exact("mvm_batched_f32", f"{mode} {shape}",
+                      mvm_batched_f32_cuda(bits_a, bits_x, *ops).reshape(-1),
+                      mvm_batched_f32_plain(bits_a, bits_x, *ops).reshape(-1))
+    single = f32_operands(qphi[4], xf[0, :N], 4, 4)
+    rep.time("mvm_f32", lambda: mvm_f32_cuda(4, 4, *single),
+             lambda: mvm_f32_plain(4, 4, *single),
+             M * N // 2 + 4 * (M // 64) * (N // 64) + qbytes(N, 4) + 4 * M,
+             ops=2 * M * N)
+    # the shard's 8.4 MB would stay in the 50 MB L2: launches rotate
+    # through copies that together pass 512 MB, as -p's rows do
+    shard = f32_operands(qphi[4], xf[0, :N], 4, 4, SHARD)
+    rows, cols = SHARD
+    nbytes = rows * cols // 2 + 4 * (rows // 64) * (cols // 64) + \
+        qbytes(cols, 4) + 4 * rows
+    ring = [[t.clone() for t in shard] for _ in range(-(-(512 << 20)
+                                                       // nbytes))]
+    turn = iter(range(1 << 30))
+    ms = median_ms(lambda: mvm_f32_cuda(4, 4, *ring[next(turn) % len(ring)]),
+                   5, 20)
+    del ring
+    print(f"  mvm_f32       4x4 {rows}x{cols} (a 2x4 shard, {rows // 64} "
+          f"CTAs, a ring of copies past the L2): kernel {ms:.4f} ms, "
+          f"{nbytes / ms / 1e6:.1f} GB/s, bytes bound "
+          f"{nbytes / hbm_rate() * 1e3:.4f} ms")
+    batch = f32_operands(qphi[4], xf[:BATCH, :N], 4, 4)
+    rep.time("mvm_batched_f32",
+             lambda: mvm_batched_f32_cuda(4, 4, *batch),
+             lambda: mvm_batched_f32_plain(4, 4, *batch),
+             M * N // 2 + 4 * (M // 64) * (N // 64)
+             + BATCH * (qbytes(N, 4) + 4 * M), ops=2 * M * N * BATCH)
 
 
 def check_threshold(rep: Report, iterates, xf, gen):
@@ -1067,6 +1196,7 @@ def phase_kernels(rep: Report, phi, mats, gen):
     check_ragged(rep, gen, modes)
     check_axpy(rep, gen, qphi, qy, qx, modes)
     check_mvm_batched(rep, gen, qphi, mats, modes)
+    check_mvm_f32(rep, qphi, mats, gen)
     check_threshold_batched(rep, gen)
     check_iteration(rep, gen, modes)
     check_restore_mat(rep, phi, gen)
@@ -1950,6 +2080,435 @@ def phase_checkpoint(gen):
 
 
 
+# -- phase 14: the sharded path, RANKS ranks on the one card ---------------
+
+RANKS = 8                     # a 2x4 mesh, every rank on cuda:0
+RANK_TIMEOUT_S = 300          # the whole of phase 14's ranks
+SHARDED_CONFIGS = (("iht", "4"), ("iht", "4x8"), ("iht", "8"),
+                   ("gd", "4x8"))
+SHARDED_TIMED_ITERS = 20
+SHARDED_REQUESTS = 128        # per server mode
+
+
+def sharded_config(kind: str, name: str, problems: dict):
+    """-> (Phi bits, y/x bits, iterations, mu, k, (phi, x*, y)) of one
+    sharded configuration: the tuned IHT of the main path (its problem),
+    or the tuned mixed 4x8 GD on a row-normalized Phi."""
+    import torch
+    from clover_tpu_torch.models import make_gd_problem, make_iht_problem
+    from clover_tpu_torch.models import tuned
+    if kind not in problems:
+        gen = torch.Generator(device="cuda").manual_seed(
+            SEED if kind == "iht" else SEED + 6)
+        make = (functools.partial(make_iht_problem, M, N, K)
+                if kind == "iht" else functools.partial(make_gd_problem, M, N))
+        problems[kind] = make(generator=gen)
+    if kind == "iht":
+        bits_a, bits_v, iters, mu, _ = config(name)
+        return bits_a, bits_v, iters, mu, K, problems[kind]
+    row = tuned.GD_MIXED_4X8[(M, N)]
+    return 4, 8, row["iters"], row["mu"], None, problems[kind]
+
+
+def sharded_operands(bits_a: int, bits_v: int, phi, y):
+    """(Phi, PhiT, y) quantized as the main path does (SR, one generator
+    seeded SEED + 1, Phi first): the same bytes on every rank."""
+    import torch
+    import clover_tpu_torch as tt
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    qphi = tt.quantize(phi, bits_a, generator=gen)
+    qy = tt.quantize(y, bits_v, generator=gen)
+    return qphi, tt.transpose(qphi), qy
+
+
+def integer_problem(seed: int, iteration: bool):
+    """4-bit integer codes (scale 7) of an M x N matrix and of x (length
+    N), or of y (length M) with +-7 planted per block (tests/
+    test_parallel.py's exactness-by-construction problems)."""
+    import torch
+    import clover_tpu_torch as tt
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ac = torch.randint(-7, 8, (M, N), generator=g, device="cuda",
+                       dtype=torch.int8)
+    vc = torch.randint(-7, 8, (M if iteration else N,), generator=g,
+                       device="cuda", dtype=torch.int8)
+    if iteration:
+        vc[::64] = 7
+    qa = tt.QMat4(codes=tt.pack_nibbles(ac), scales=torch.full(
+        (M // 64, N // 64), 7.0, device="cuda"), rows=M, cols=N)
+    qv = tt.QVec4(codes=tt.pack_nibbles(vc), scales=torch.full(
+        (vc.shape[0] // 64,), 7.0, device="cuda"), length=vc.shape[0])
+    return ac, vc, qa, qv
+
+
+def leaves_of(q) -> list:
+    return [q.values] if q.bits in (16, 32) else [q.codes, q.scales]
+
+
+def replicas_equal(tensors, mesh, axes) -> bool:
+    """Every rank's copy of ``tensors`` along each of ``axes`` equal to
+    this rank's, byte for byte (a collective)."""
+    import torch
+    from clover_tpu_torch.parallel.mesh import gather
+    ok = True
+    for axis in axes:
+        for g in gather(tensors, mesh, axis):
+            flat = g.reshape(g.shape[0], -1)
+            ok &= bool(torch.equal(flat, flat[:1].expand_as(flat)))
+    return ok
+
+
+def sharded_rank(rank: int, port: int, queue):
+    """One rank of phase 14: everything below runs on every rank in the
+    same order (SPMD); rank 0 also serves and reports.  Puts its results
+    (numbers, lists and NumPy arrays) on ``queue``."""
+    import traceback
+    import torch.distributed as dist
+    out = {"rank": rank}
+    try:
+        out.update(sharded_rank_work(rank, port))
+    except Exception:
+        out["error"] = traceback.format_exc()
+    finally:
+        queue.put(out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def sharded_rank_work(rank: int, port: int) -> dict:
+    import torch
+    import torch.distributed as dist
+    import clover_tpu_torch as tt
+    from clover_tpu_torch import kernels, parallel as par
+    from clover_tpu_torch.harness import perf
+    from clover_tpu_torch.ops import _core
+    from clover_tpu_torch.ops.axpy import scale_and_add
+    from clover_tpu_torch.ops.mvm import _requant_output, mvm_f32_fast
+    from clover_tpu_torch.parallel import ops as pops
+    from clover_tpu_torch.parallel import solvers
+    from clover_tpu_torch.parallel.mesh import vec_block
+    from clover_tpu_torch.serving import MVMServer
+    par.initialize(f"127.0.0.1:{port}", RANKS, rank)
+    mesh = par.make_mesh()
+    ROW, COL = par.ROW, par.COL
+    out = {"backend": dist.get_backend(), "shape": tuple(mesh.shape),
+           "device": str(par.local_device())}
+    counts = dict.fromkeys(KERNEL_INFO, 0)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        for name, n in kernels.launch_counts().items():
+            counts[name] += n
+        return result
+
+    # the same problem on every rank: a checksum's max and min agree
+    problems = {}
+    phi = sharded_config("iht", "4", problems)[5][0]
+    c = int(phi.view(torch.int32).to(torch.int64).sum())
+    t = torch.tensor([c, -c], device="cuda")
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    out["copies equal"] = t.tolist() == [c, -c]
+
+    # the exact-integer mvm_psum
+    ac, xc, qa, qx = integer_problem(SEED + 7, iteration=False)
+    A_l = par.shard_matrix(qa, mesh).local
+    x_l = par.shard_vector(qx, mesh, COL).local
+    y = counted(lambda: pops.mvm_psum(A_l, x_l, COL, None, 32, ROW, mesh))
+    full = par.gather_vector(y, mesh, ROW, M).values
+    with _core.ieee_fp32():
+        want = ac.float() @ xc.float()        # integer sums below 2^24
+    out["psum exact"] = bool(torch.equal(full, want))
+    # an SR requant owned by ROW: its col replicas are equal
+    q4 = counted(lambda: pops.mvm_psum(A_l, x_l, COL, 12345, 4, ROW, mesh))
+    out["psum replicas equal"] = replicas_equal(leaves_of(q4), mesh, (COL,))
+    del ac, xc, qa, qx, A_l, x_l, want
+
+    # one exact iteration
+    _, _, qa, qy = integer_problem(SEED + 9, iteration=True)
+    res = counted(lambda: solvers.iht(
+        par.shard_matrix(qa, mesh), par.shard_matrix(tt.transpose(qa), mesh,
+                                                     True),
+        par.shard_vector(qy, mesh, ROW), 1, K, 0.25, mesh))
+    out["iteration"] = [t.cpu().numpy() for t in leaves_of(res.x)]
+    del qa, qy
+
+    # the sharded solves at their tuned mu and iterations, traced
+    for kind, name in SHARDED_CONFIGS:
+        bits_a, bits_v, iters, mu, k, (phi, x_star, y) = sharded_config(
+            kind, name, problems)
+        qphi, qphit, qy = sharded_operands(bits_a, bits_v, phi, y)
+        shards = (par.shard_matrix(qphi, mesh),
+                  par.shard_matrix(qphit, mesh, True),
+                  par.shard_vector(qy, mesh, ROW))
+        xs = tt.QVec32(values=x_star, length=N)
+        solve = (functools.partial(solvers.iht, *shards, iters, k, mu, mesh)
+                 if kind == "iht" else
+                 functools.partial(solvers.gd, *shards, iters, mu, mesh))
+        res = counted(lambda: solve(x_star=xs))
+        out[f"{kind} {name}"] = {
+            "trace": res.trace.tolist(),
+            "replicas equal": replicas_equal(leaves_of(res.x), mesh,
+                                             (ROW, COL))}
+        if (kind, name) != ("iht", "4"):
+            continue
+        # the 4-bit IHT timed, and its legs one by one
+        run = functools.partial(solvers.iht, *shards, SHARDED_TIMED_ITERS,
+                                k, mu, mesh)
+        counted(run)                                     # warm-up
+        host, dev_ms = timed(lambda: counted(run))
+        phi_l, y_l = shards[0].local, shards[2].local
+        c = mesh.get_local_rank(COL)
+        nl = phi_l.cols_pad
+        x_l = vec_block(res.x, c * nl, (c + 1) * nl)
+        y32 = mvm_f32_fast(phi_l, x_l)
+        t1 = _requant_output(y32.clone(), phi_l.rows, 4, None)
+        out["timed"] = {
+            "iterations/s": SHARDED_TIMED_ITERS * 1e3 / host,
+            "host ms": host / SHARDED_TIMED_ITERS,
+            "events ms": dev_ms / SHARDED_TIMED_ITERS,
+            "f32 kernel ms": median_ms(lambda: mvm_f32_fast(phi_l, x_l), 5,
+                                       20),
+            "all_reduce ms": 1e3 * wall_time(lambda: dist.all_reduce(
+                y32.clone(), group=mesh.get_group(COL))),
+            "requant ms": median_ms(lambda: _requant_output(
+                y32, phi_l.rows, 4, None), 5, 20),
+            "axpy ms": median_ms(lambda: scale_and_add(y_l, t1, -1.0), 5,
+                                 20),
+            "threshold_global ms": 1e3 * wall_time(
+                lambda: pops.threshold_global(x_l, k, COL, mesh)),
+        }
+    del problems, phi, x_star, y, qphi, qphit, qy, shards
+    torch.cuda.empty_cache()
+
+    # the sharded server on NS x NS matrices
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    a = torch.rand(NS, NS, generator=gen, device="cuda") * 2 - 1
+    mats = {bits: tt.quantize(a, bits) for bits in (4, 8)}
+    del a
+    torch.cuda.empty_cache()
+    served = {}
+    for bits_a, modes in ((4, ("4x4", "4x8")), (8, ("8x8",))):
+        shard = par.shard_matrix(mats[bits_a], mesh)
+        if rank != 0:          # the follower loop, until rank 0 closes
+            counted(lambda: MVMServer(shard, max_batch=32, max_wait_s=0.002,
+                                      mesh=mesh))
+            continue
+        server = MVMServer(shard, max_batch=32, max_wait_s=0.002, mesh=mesh)
+        try:
+            for mode in modes:
+                bits_x = int(mode.split("x")[1])
+                reqs = stacked_requests(gen, SHARDED_REQUESTS, NS, bits_x)
+                results, wall, lat = counted(lambda: serve(server, reqs))
+                worst_lsb, worst_rtol = 0, 0.0
+                for i, y in enumerate(results):
+                    want = tt.mvm(mats[bits_a], tt.vector_at(reqs, i))
+                    worst_lsb = max(worst_lsb, int((
+                        codes_of(y.codes, want.bits).int()
+                        - codes_of(want.codes, want.bits).int()).abs().max()))
+                    worst_rtol = max(worst_rtol, float(
+                        ((y.scales - want.scales).abs()
+                         / want.scales.abs()).max()))
+                n = len(results)
+                served[mode] = {
+                    "requests": n, "wall s": wall, "lsb": worst_lsb,
+                    "rtol": worst_rtol, "p50 ms": lat[n // 2] * 1e3,
+                    "p99 ms": lat[min(n - 1, math.ceil(0.99 * n) - 1)] * 1e3}
+        finally:
+            server.close()
+    out["server"] = served
+    del mats
+    torch.cuda.empty_cache()
+
+    # -p --sharded's rows on the 2x4 mesh
+    lines = []
+    counted(lambda: perf.run_perf(lines.append, quick=True, sharded=True))
+    out["perf"] = lines
+    out["counts"] = counts
+    return out
+
+
+def run_ranks() -> list[dict]:
+    """Spawn RANKS ranks of ``sharded_rank`` (the library is built
+    already, so they load it); -> their results, in rank order.  Raises
+    if a rank fails or RANK_TIMEOUT_S passes; every rank is ended on the
+    way out."""
+    import queue as queues
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=sharded_rank, args=(r, port, q))
+             for r in range(RANKS)]
+    results = {}
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.start()
+        while len(results) < RANKS:
+            try:
+                res = q.get(timeout=1.0)
+            except queues.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                if dead or time.monotonic() > deadline:
+                    raise AssertionError(f"phase 14: ranks got {sorted(results)}"
+                                         f"; exit codes {dead} or timed out")
+                continue
+            if "error" in res:
+                raise AssertionError(f"rank {res['rank']} failed:\n"
+                                     f"{res['error']}")
+            results[res["rank"]] = res
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=10)
+    return [results[r] for r in range(RANKS)]
+
+
+def regime_rule(tp, ts, what: str):
+    """tests/test_parallel.py:52-58: the first iteration within 5%
+    (+1e-4), the last within max(1.3x, +0.05) of the reference ts."""
+    if not (all(math.isfinite(t) for t in tp)
+            and abs(tp[0] - ts[0]) <= 0.05 * ts[0] + 1e-4
+            and tp[-1] <= max(1.3 * ts[-1], ts[-1] + 0.05)):
+        raise AssertionError(f"{what}: sharded trace {tp} off the single "
+                             f"solve's {ts}")
+
+
+def phase_sharded():
+    """The sharded path on RANKS ranks sharing the card; -> the launch
+    counts of its runs, summed over the ranks."""
+    import numpy as np
+    import torch
+    import clover_tpu_torch as tt
+    print(f"== 14. the sharded path: {RANKS} ranks sharing the card, a 2x4 "
+          f"mesh ({M}x{N}, K={K})")
+    # the references, on this process before the ranks start: the single
+    # solves of each configuration and the single exact iteration
+    problems, refs = {}, {}
+    for kind, name in SHARDED_CONFIGS:
+        bits_a, bits_v, iters, mu, k, (phi, x_star, y) = sharded_config(
+            kind, name, problems)
+        qphi, qphit, qy = sharded_operands(bits_a, bits_v, phi, y)
+        xs = tt.QVec32(values=x_star, length=N)
+        res = (tt.iht(qphi, qphit, qy, iters, k, mu, x_star=xs)
+               if kind == "iht" else
+               tt.gd(qphi, qphit, qy, iters, mu, x_star=xs))
+        refs[kind, name] = [float(t) for t in res.trace]
+    del problems, phi, x_star, y, qphi, qphit, qy
+    _, _, qa, qy = integer_problem(SEED + 9, iteration=True)
+    single = tt.iht(qa, tt.transpose(qa), qy, 1, K, 0.25).x
+    single = [t.cpu().numpy() for t in leaves_of(single)]
+    del qa, qy
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = run_ranks()
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"  {RANKS} ranks: backend {r0['backend']}, mesh "
+          f"{'x'.join(map(str, r0['shape']))}, devices "
+          f"{sorted({r['device'] for r in ranks})}; wall {wall:.2f} s")
+    if any(r["backend"] != "gloo" or r["shape"] != (2, 4) for r in ranks):
+        raise AssertionError("phase 14: not a 2x4 gloo mesh")
+    for what in ("copies equal", "psum exact", "psum replicas equal"):
+        if not all(r[what] for r in ranks):
+            raise AssertionError(f"phase 14: {what} fails on a rank")
+    print(f"  every rank built the same {M}x{N} problem (checksum max = "
+          f"min); the exact-integer mvm_psum bit-identical to the integer "
+          f"product on every rank; an SR requant's col replicas equal")
+    got = r0["iteration"]
+    if not all(np.array_equal(g, w) for g, w in zip(got, single)):
+        raise AssertionError("phase 14: the exact sharded iteration differs "
+                             "from the single-device one")
+    kept = int(np.count_nonzero(codes_of(torch.from_numpy(got[0]), 4)))
+    if kept != K:
+        raise AssertionError(f"exact iteration kept {kept}, not {K}")
+    print(f"  one exact sharded 4-bit iteration bit-identical to this "
+          f"process's single-device iteration ({kept} kept)")
+    for kind, name in SHARDED_CONFIGS:
+        key = f"{kind} {name}"
+        tp = r0[key]["trace"]
+        regime_rule(tp, refs[kind, name], f"sharded {key}")
+        if not all(r[key]["replicas equal"] and r[key]["trace"] == tp
+                   for r in ranks):
+            raise AssertionError(f"phase 14: {key}: the ranks' solutions or "
+                                 f"traces differ")
+        print(f"  {key:8s} sharded trace {[round(t, 6) for t in tp]} vs "
+              f"single {[round(t, 6) for t in refs[kind, name]]}; solution "
+              f"replicated bit for bit on all {RANKS} ranks")
+    tm = r0["timed"]
+    print(f"  4-bit IHT, {SHARDED_TIMED_ITERS} untraced iterations on "
+          f"{RANKS} ranks sharing the card over gloo: "
+          f"{tm['iterations/s']:.1f} iterations/s (host clock, "
+          f"{tm['host ms']:.4f} ms/iteration; CUDA events "
+          f"{tm['events ms']:.4f} ms)")
+    print("  per-leg split (rank 0, the Phi leg): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in tm.items()
+        if k.endswith(" ms") and k not in ("host ms", "events ms")))
+    for mode, sv in r0["server"].items():
+        if sv["lsb"] > 1 or sv["rtol"] > MVM_SCALE_RTOL:
+            raise AssertionError(f"sharded server {mode}: {sv['lsb']} LSB, "
+                                 f"scale rtol {sv['rtol']} from tt.mvm")
+        print(f"  sharded MVMServer {mode} {NS}x{NS}: {sv['requests']} "
+              f"requests in {sv['wall s'] * 1e3:.2f} ms, "
+              f"{sv['requests'] / sv['wall s']:.1f} requests/s, p50 "
+              f"{sv['p50 ms']:.3f} ms p99 {sv['p99 ms']:.3f} ms; within "
+              f"{sv['lsb']} LSB of tt.mvm, scales rtol {sv['rtol']:.3g}")
+    if len(r0["server"]) != len(MODES):
+        raise AssertionError("phase 14: a server mode did not run")
+    print("\n".join(f"  {line}" for line in r0["perf"]))
+    rows = ("mvm 4x4 direct n=4096", "mvm_psum 4x4 n=4096 2x4",
+            "mvm_psum-ovl4 4x4 n=4096 2x4", "IHT 4-bit single 2048x4096",
+            "IHT 4-bit sharded 2048x4096 2x4")
+    missing = [row for row in rows if not any(
+        line.startswith(row) for line in r0["perf"])]
+    if missing:
+        raise AssertionError(f"-p --sharded on 2x4: rows {missing} missing")
+    counts = {name: sum(r["counts"][name] for r in ranks)
+              for name in KERNEL_INFO}
+    print(f"  launches, summed over the ranks {counts}")
+    return counts
+
+
+def phase_sharded_cli():
+    """``-p --sharded --quick`` through the CLI in this process: a world of
+    one, a 1x1 mesh; -> its launch counts."""
+    import torch
+    import torch.distributed as dist
+    from clover_tpu_torch import kernels
+    print("== 15. python -m clover_tpu_torch -p --sharded --quick: a 1x1 "
+          "mesh in this process")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = cli_output(["-p", "--sharded", "--quick"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    print(out.rstrip())
+    rows = ("mvm 4x4 direct n=4096", "mvm_psum 4x4 n=4096 1x1",
+            "mvm_psum-ovl4 4x4 n=4096 1x1", "IHT 4-bit single 2048x4096",
+            "IHT 4-bit sharded 2048x4096 1x1",
+            "sharded solution bit-identical to the single solve")
+    missing = [row for row in rows if row not in out]
+    print(f"  backend {dist.get_backend()}; exit 0; wall {wall:.2f} s; "
+          f"launches {counts}")
+    dist.destroy_process_group()
+    if missing:
+        raise AssertionError(f"-p --sharded: {missing} missing")
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1976,6 +2535,10 @@ def main() -> int:
     runs.append(phase_perf())
     runs.append(phase_search())
     phase_checkpoint(torch.Generator(device="cuda").manual_seed(SEED + 5))
+    t0 = time.perf_counter()
+    runs.append(phase_sharded())
+    runs.append(phase_sharded_cli())
+    print(f"  phases 14-15: {time.perf_counter() - t0:.2f} s")
     launches = {kernel: sum(run[kernel] for run in runs)
                 for kernel in KERNEL_INFO}
     for kernel, n in launches.items():

@@ -2,7 +2,7 @@
 modes:
 
     python -m clover_tpu_torch -v [--full]         validation
-    python -m clover_tpu_torch -p [--quick]        performance tables
+    python -m clover_tpu_torch -p [--quick] [--sharded]   performance tables
     python -m clover_tpu_torch -a [--gd] [--epochs N] [--no-sr]   accuracy
     python -m clover_tpu_torch -g [--quick] [--gd | --mixed] [--ladder19]
 
@@ -41,7 +41,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quick", action="store_true",
                    help="reduced size set (performance / search)")
     p.add_argument("--sharded", action="store_true",
-                   help="-p: bench the sharded path (not ported yet)")
+                   help="-p: bench the sharded path over the running "
+                        "world's mesh (1x1 in one process, R x C under "
+                        "torchrun)")
     p.add_argument("--gd", action="store_true",
                    help="use gradient descent instead of IHT (-a; restricts "
                         "-g to the GD families)")

@@ -1,10 +1,13 @@
 // Fused requantizing MVM, with an optional scaleAndAdd epilogue, for a 4- or
 // 8-bit matrix A times a 4- or 8-bit vector x: modes 4x4 (4-bit output),
-// 4x8 and 8x8 (8-bit output).
+// 4x8 and 8x8 (8-bit output); and its f32-output mode.
 //
 // Replaces clover_tpu/kernels/mvm.py mvm_pallas and mvm_axpy_pallas (bodies
 // _kernel_4x4, _kernel_4x4_i4, _kernel_4x8 and _kernel_8x8, epilogues
-// _requant_write and _requant_axpy_write):
+// _requant_write and _requant_axpy_write), and mvm_pallas_f32 (the same
+// bodies, _build_call with out_bits 32): mvm_f32_kernel writes the band's
+// 64 f32 sums y and no codes, for the sharded path, which sums the shards'
+// partials before the band requant (clover_tpu/parallel/ops.py mvm_psum):
 //
 //   y   = A x                       exact int32 dot per (row, 64-block),
 //                                   times (sA/qA)*(sx/qx) in f32, summed
@@ -56,6 +59,19 @@ mvm_kernel(const int8_t* __restrict__ a, const float* __restrict__ a_scales,
                           noise2, seed2);
 }
 
+// f32-output mode: one CTA per 64-row band writes y[band*64 ... + 63], the
+// sums the requant would read (mvm_band with F32).  No Philox, no AXPY.
+// n_pad and m_pad need only be multiples of 64 (a shard's side).
+template <int BA, int BX>
+__global__ void __launch_bounds__(MV_THREADS)
+mvm_f32_kernel(const int8_t* __restrict__ a, const float* __restrict__ a_scales,
+               const int8_t* __restrict__ x, const float* __restrict__ x_scales,
+               float* __restrict__ out, int64_t n_pad) {
+  mvm_band<BA, BX, false, true>(blockIdx.x, a, a_scales, x, x_scales, nullptr,
+                                nullptr, 0.0f, nullptr, nullptr, n_pad, 0, 0u,
+                                0, 0u, out);
+}
+
 }  // namespace clover
 
 extern "C" int clover_mvm(const int8_t* a, const float* a_scales,
@@ -80,6 +96,27 @@ extern "C" int clover_mvm(const int8_t* a, const float* a_scales,
     clover::mvm_kernel<8, 8><<<grid, T, 0, s>>>(
         a, a_scales, x, x_scales, u, u_scales, alpha, out, out_scales, n_pad,
         noise1, seed1, noise2, seed2);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int clover_mvm_f32(const int8_t* a, const float* a_scales,
+                              const int8_t* x, const float* x_scales,
+                              float* out, int64_t m_pad, int64_t n_pad,
+                              int bits_a, int bits_x, void* stream) {
+  const unsigned grid = (unsigned)(m_pad / 64);
+  cudaStream_t s = (cudaStream_t)stream;
+  constexpr int T = clover::MV_THREADS;
+  if (bits_a == 4 && bits_x == 4)
+    clover::mvm_f32_kernel<4, 4><<<grid, T, 0, s>>>(a, a_scales, x, x_scales,
+                                                     out, n_pad);
+  else if (bits_a == 4 && bits_x == 8)
+    clover::mvm_f32_kernel<4, 8><<<grid, T, 0, s>>>(a, a_scales, x, x_scales,
+                                                     out, n_pad);
+  else if (bits_a == 8 && bits_x == 8)
+    clover::mvm_f32_kernel<8, 8><<<grid, T, 0, s>>>(a, a_scales, x, x_scales,
+                                                     out, n_pad);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -26,14 +26,18 @@ __device__ __forceinline__ void unpack_word(uint32_t w, int& lo, int& hi) {
 // memory; warp 0 runs the epilogue, so a caller that loops over bands
 // __syncthreads() before the next band.  CG loads x, u and their scales
 // through ld_cg (the cooperative kernels, where another CTA wrote them).
-template <int BA, int BX, bool CG>
+// With F32 (mvm.cu mvm_f32_kernel) the CTA writes the band's 64 f32 sums
+// to out_f32[band*64 ...] instead and does no requant (u, out and
+// out_scales unused).  The chunk loop's ``valid`` guard covers a partial
+// last chunk, so any n_pad that is a multiple of 64 works.
+template <int BA, int BX, bool CG, bool F32 = false>
 __device__ __forceinline__ void mvm_band(
     int64_t band, const int8_t* __restrict__ a,
     const float* __restrict__ a_scales, const int8_t* __restrict__ x,
     const float* __restrict__ x_scales, const int8_t* __restrict__ u,
     const float* __restrict__ u_scales, float alpha, int8_t* __restrict__ out,
     float* __restrict__ out_scales, int64_t n_pad, int noise1, uint32_t seed1,
-    int noise2, uint32_t seed2) {
+    int noise2, uint32_t seed2, float* __restrict__ out_f32 = nullptr) {
   constexpr int BO = (BA == 4 && BX == 4) ? 4 : 8;  // output bits
   constexpr float QA = BA == 4 ? 7.0f : 127.0f;
   constexpr float QX = BX == 4 ? 7.0f : 127.0f;
@@ -124,6 +128,10 @@ __device__ __forceinline__ void mvm_band(
     if (lane == 0) ys[warp * MV_ROWS + r] = v;
   }
   __syncthreads();
+  if constexpr (F32) {
+    if (threadIdx.x < 64) out_f32[band * 64 + threadIdx.x] = ys[threadIdx.x];
+    return;
+  }
   if (warp != 0) return;
 
   // band requant: lane j holds band rows j and j + 32 (the two nibbles of

@@ -1,10 +1,15 @@
 // Batched requantizing MVM: 1 <= B <= 32 vectors against one 4- or 8-bit
-// matrix A, modes 4x4 (4-bit output), 4x8 and 8x8 (8-bit output).
+// matrix A, modes 4x4 (4-bit output), 4x8 and 8x8 (8-bit output), and its
+// f32-output mode.
 //
 // Replaces clover_tpu/kernels/mvm_batched.py mvm_batched_pallas (bodies
 // _kernel_4x4_b, _kernel_4x8_b, _kernel_8x8_b, epilogue _epilogue_b) in its
-// requantizing modes.  Vector j's output is that of csrc/mvm.cu without the
-// AXPY epilogue, with seed1 = seed + j:
+// requantizing modes, and mvm_batched_pallas_f32 (the same bodies,
+// _build_call_b with out_bits 32): with F32 the epilogue writes vector j's
+// 64 f32 band sums y_j to out_f32[j, band*64 ...] instead of requantizing,
+// for the sharded server, which sums the shards' partials first
+// (clover_tpu/parallel/ops.py mvm_batched_psum).  Vector j's output is that
+// of csrc/mvm.cu without the AXPY epilogue, with seed1 = seed + j:
 //
 //   y_j = A x_j        exact int32 dot per (row, 64-block), times
 //                      (sA/qA)*(sx_j/qx) in f32, summed in mvm.cu's order
@@ -25,13 +30,17 @@
 // and __dp4a's them against each of the BT vectors' x words; the group and
 // lane order is mvm.cu's, so every vector's sums are the single kernel's.
 // BT is 4 or 8 (a template parameter), bounding the BT x 8 accumulators
-// per thread.  No tensor core is used; an int8 MMA redesign (nibbles
-// unpacked to s8 in shared memory) is a later step.
+// per thread.  m_pad and n_pad need only be multiples of 64 (mvm.cuh).
+// out_f32 is the last parameter and the F32 branch leaves the requant's
+// statement order alone, so the requantizing instances compile to the
+// machine code of a kernel without the F32 mode (kernel_ab.py --sass).
+// No tensor core is used; an int8 MMA redesign (nibbles unpacked to s8 in
+// shared memory) is a later step.
 #include "mvm.cuh"
 
 namespace clover {
 
-template <int BA, int BX, int BT>
+template <int BA, int BX, int BT, bool F32>
 __global__ void __launch_bounds__(256)
 mvm_batched_kernel(const int8_t* __restrict__ a,
                    const float* __restrict__ a_scales,
@@ -39,7 +48,7 @@ mvm_batched_kernel(const int8_t* __restrict__ a,
                    const float* __restrict__ x_scales,
                    int8_t* __restrict__ out, float* __restrict__ out_scales,
                    int64_t m_pad, int64_t n_pad, int batch, int noise,
-                   uint32_t seed) {
+                   uint32_t seed, float* __restrict__ out_f32) {
   constexpr int BO = (BA == 4 && BX == 4) ? 4 : 8;  // output bits
   constexpr float QA = BA == 4 ? 7.0f : 127.0f;
   constexpr float QX = BX == 4 ? 7.0f : 127.0f;
@@ -145,6 +154,11 @@ mvm_batched_kernel(const int8_t* __restrict__ a,
   const uint32_t seed1 = seed + (uint32_t)vec;
   const int64_t i0 = band * 64 + lane, i1 = i0 + 32;
   const float y0 = ys[warp][lane], y1 = ys[warp][lane + 32];
+  if constexpr (F32) {
+    out_f32[vec * m_pad + i0] = y0;
+    out_f32[vec * m_pad + i1] = y1;
+    return;
+  }
   const float s1 = nonzero_scale(warp_max(fmaxf(fabsf(y0), fabsf(y1))));
   const float mult1 = QO / s1;
   const int q0 = sr_code(y0, mult1, QO, sr_noise(noise, seed1, i0, 0));
@@ -159,23 +173,46 @@ mvm_batched_kernel(const int8_t* __restrict__ a,
   if (lane == 0) out_scales[vec * (m_pad / 64) + band] = s1;
 }
 
-template <int BA, int BX>
+template <int BA, int BX, bool F32>
 int launch_batched(const int8_t* a, const float* a_scales, const int8_t* x,
                    const float* x_scales, int8_t* out, float* out_scales,
-                   int64_t m_pad, int64_t n_pad, int batch, int noise,
-                   uint32_t seed, cudaStream_t s) {
+                   float* out_f32, int64_t m_pad, int64_t n_pad, int batch,
+                   int noise, uint32_t seed, cudaStream_t s) {
   if (batch <= 4) {
     const dim3 grid((unsigned)((batch + 3) / 4), (unsigned)(m_pad / 64));
-    mvm_batched_kernel<BA, BX, 4><<<grid, 256, 0, s>>>(
+    mvm_batched_kernel<BA, BX, 4, F32><<<grid, 256, 0, s>>>(
         a, a_scales, x, x_scales, out, out_scales, m_pad, n_pad, batch,
-        noise, seed);
+        noise, seed, out_f32);
   } else {
     const dim3 grid((unsigned)((batch + 7) / 8), (unsigned)(m_pad / 64));
-    mvm_batched_kernel<BA, BX, 8><<<grid, 256, 0, s>>>(
+    mvm_batched_kernel<BA, BX, 8, F32><<<grid, 256, 0, s>>>(
         a, a_scales, x, x_scales, out, out_scales, m_pad, n_pad, batch,
-        noise, seed);
+        noise, seed, out_f32);
   }
   return (int)cudaGetLastError();
+}
+
+// Dispatch on the mode; out_f32 selects the f32-output mode.
+template <bool F32>
+int launch_mode(const int8_t* a, const float* a_scales, const int8_t* x,
+                const float* x_scales, int8_t* out, float* out_scales,
+                float* out_f32, int64_t m_pad, int64_t n_pad, int batch,
+                int bits_a, int bits_x, int noise, uint32_t seed,
+                cudaStream_t s) {
+  if (batch < 1 || batch > 32) return (int)cudaErrorInvalidValue;
+  if (bits_a == 4 && bits_x == 4)
+    return launch_batched<4, 4, F32>(a, a_scales, x, x_scales, out,
+                                     out_scales, out_f32, m_pad, n_pad,
+                                     batch, noise, seed, s);
+  if (bits_a == 4 && bits_x == 8)
+    return launch_batched<4, 8, F32>(a, a_scales, x, x_scales, out,
+                                     out_scales, out_f32, m_pad, n_pad,
+                                     batch, noise, seed, s);
+  if (bits_a == 8 && bits_x == 8)
+    return launch_batched<8, 8, F32>(a, a_scales, x, x_scales, out,
+                                     out_scales, out_f32, m_pad, n_pad,
+                                     batch, noise, seed, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace clover
@@ -186,19 +223,18 @@ extern "C" int clover_mvm_batched(const int8_t* a, const float* a_scales,
                                   int64_t m_pad, int64_t n_pad, int batch,
                                   int bits_a, int bits_x, int noise,
                                   uint32_t seed, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (batch < 1 || batch > 32) return (int)cudaErrorInvalidValue;
-  if (bits_a == 4 && bits_x == 4)
-    return clover::launch_batched<4, 4>(a, a_scales, x, x_scales, out,
-                                        out_scales, m_pad, n_pad, batch,
-                                        noise, seed, s);
-  if (bits_a == 4 && bits_x == 8)
-    return clover::launch_batched<4, 8>(a, a_scales, x, x_scales, out,
-                                        out_scales, m_pad, n_pad, batch,
-                                        noise, seed, s);
-  if (bits_a == 8 && bits_x == 8)
-    return clover::launch_batched<8, 8>(a, a_scales, x, x_scales, out,
-                                        out_scales, m_pad, n_pad, batch,
-                                        noise, seed, s);
-  return (int)cudaErrorInvalidValue;
+  return clover::launch_mode<false>(a, a_scales, x, x_scales, out,
+                                    out_scales, nullptr, m_pad, n_pad, batch,
+                                    bits_a, bits_x, noise, seed,
+                                    (cudaStream_t)stream);
+}
+
+extern "C" int clover_mvm_batched_f32(const int8_t* a, const float* a_scales,
+                                      const int8_t* x, const float* x_scales,
+                                      float* out, int64_t m_pad, int64_t n_pad,
+                                      int batch, int bits_a, int bits_x,
+                                      void* stream) {
+  return clover::launch_mode<true>(a, a_scales, x, x_scales, nullptr,
+                                   nullptr, out, m_pad, n_pad, batch, bits_a,
+                                   bits_x, 0, 0u, (cudaStream_t)stream);
 }

@@ -45,7 +45,8 @@ from ..ops.quantize import quantize, quantize_vec, restore_vec
 from ..ops.threshold import threshold
 from ..ops.transpose import transpose
 from .timing import (
-    HOST_SPIN_CYCLES, SPIN_CYCLES, call_time, gbs, memory_rate, pct_roofline,
+    HOST_SPIN_CYCLES, SPIN_CYCLES, call_time, gbs, memory_rate,
+    pct_roofline, wall_time,
 )
 
 VEC_SIZES = [1 << 16, 1 << 20, 1 << 22, 1 << 24]
@@ -491,15 +492,101 @@ def bench_iht_batched(log, sizes=IHT_SIZES[:2], b: int = 8, device="cuda"):
             f"clock{_events_note(ev)} per batched iteration)")
 
 
+def bench_sharded(log, sizes=(8192,), iht_size=(4096, 8192), device="cuda"):
+    """``-p --sharded``: the sharded path (parallel/ops.mvm_psum, its
+    overlapped form, parallel/solvers.iht) over ``make_mesh()`` of the
+    running world -- a 1x1 mesh in one process, R x C under torchrun --
+    beside the direct kernel and the single solve, with per-shard GB/s
+    and the overhead against them.  Every rank runs it; rank 0 prints.
+    The sharded rows are host-clock times (their collectives wait on the
+    host); on a world of one the sharded solution must equal the single
+    solve's bit for bit."""
+    import torch.distributed as dist
+    from ..models.solvers import iht
+    from ..parallel import (
+        COL, ROW, initialize, is_coordinator, make_mesh, shard_matrix,
+        shard_vector, solvers,
+    )
+    from ..parallel.mesh import axis_size
+    from ..parallel.ops import (
+        mvm_psum, mvm_psum_overlapped, prepare_psum_chunks,
+    )
+    initialize(device=None if _cuda(device) else device)
+    mesh = make_mesh()
+    R, C = axis_size(mesh, ROW), axis_size(mesh, COL)
+    n_dev = R * C
+    if not is_coordinator():
+        log = lambda *a: None                                 # noqa: E731
+    log(f"\n== sharded path: mesh {R}x{C} ({n_dev} rank(s), "
+        f"{dist.get_backend()}) -- mvm_psum / sharded IHT")
+    gen = _generator(device)
+    for n in sizes:
+        qA = quantize(_uniform(gen, (n, n), device), 4)
+        qx = quantize(_uniform(gen, n, device), 4)
+        p = _slots(qA.nbytes, device)
+        slot = _mat_slots(qA, p)
+        t_direct = _ring_time(device, p, lambda j: mvm(slot(j), qx))
+        del slot
+        _row(log, f"mvm 4x4 direct n={n}", qA.nbytes, t_direct,
+             device=device)
+        A_l = shard_matrix(qA, mesh).local
+        x_l = shard_vector(qx, mesh, COL).local
+        ready = prepare_psum_chunks(A_l, 4)
+        legs = (("psum", lambda: mvm_psum(A_l, x_l, COL, None, 4, ROW, mesh)),
+                ("psum-ovl4", lambda: mvm_psum_overlapped(
+                    A_l, x_l, COL, None, 4, ROW, mesh, chunks=4,
+                    prepared=ready)))
+        for label, fn in legs:
+            dt = wall_time(fn, device)
+            _row(log, f"mvm_{label} 4x4 n={n} {R}x{C}", qA.nbytes, dt,
+                 t_direct, device=device)
+            log(f"{'':{NAME_WIDTH}s} -> per-shard "
+                f"{gbs(qA.nbytes // n_dev, dt):9.1f} GB/s, overhead vs "
+                f"direct {dt / t_direct:5.2f}x")
+
+    m, n = iht_size
+    phi, y = _iht_problem(gen, m, n, device)
+    qphi = quantize(phi, 4)
+    qphit = transpose(qphi)
+    qy = quantize(y, 4)
+    k = n // 4
+    shards = (shard_matrix(qphi, mesh), shard_matrix(qphit, mesh, True),
+              shard_vector(qy, mesh, ROW))
+    # full-length solves first: warm-ups of the chained path both rows take
+    single = iht(qphi, qphit, qy, IHT_ITERS, k, 1e-4).x
+    shard = solvers.iht(*shards, IHT_ITERS, k, 1e-4, mesh).x
+    t1, _ = _solve_time(lambda it: iht(qphi, qphit, qy, it, k, 1e-4),
+                        device, IHT_ITERS)
+    _row(log, f"IHT 4-bit single {m}x{n}", 2 * qphi.nbytes, t1,
+         device=device)
+    ts, _ = _solve_time(lambda it: solvers.iht(*shards, it, k, 1e-4, mesh),
+                        device, IHT_ITERS)
+    _row(log, f"IHT 4-bit sharded {m}x{n} {R}x{C}", 2 * qphi.nbytes, ts,
+         device=device)
+    log(f"{'':{NAME_WIDTH}s} -> per-shard "
+        f"{gbs(2 * qphi.nbytes // n_dev, ts):9.1f} GB/s, overhead vs single "
+        f"{ts / t1:5.2f}x")
+    if n_dev == 1:
+        if not (torch.equal(single.codes, shard.codes)
+                and torch.equal(single.scales, shard.scales)):
+            raise RuntimeError("1x1 mesh: the sharded IHT differs from the "
+                               "single solve")
+        log(f"{'':{NAME_WIDTH}s} -> sharded solution bit-identical to the "
+            f"single solve")
+
+
 def run_perf(log=print, quick: bool = False, sharded: bool = False,
              device="cuda", sizes: dict | None = None):
     """Every table of ``-p`` on ``device``.  ``quick`` takes the first
     sizes of each sweep; ``sizes`` overrides the sweeps (keys "vec",
-    "mvm", "iht", "warm", "get"), for tests at small sizes."""
+    "mvm", "iht", "warm", "get"), for tests at small sizes.  ``sharded``
+    runs only :func:`bench_sharded`, at the last quick MVM size (4096 and
+    8192 without ``quick``) and the first IHT size."""
     if sharded:
-        raise NotImplementedError(
-            "-p --sharded drives the sharded path, which waits for the "
-            "parallel/ slice (ROADMAP.md queue 1 item 4)")
+        bench_sharded(log, sizes=(MVM_SIZES[1],) if quick else
+                      tuple(MVM_SIZES[1:3]), iht_size=IHT_SIZES[0],
+                      device=device)
+        return
     sizes = sizes or {}
     vec = sizes.get("vec", VEC_SIZES[:2] if quick else VEC_SIZES)
     mvm_n = sizes.get("mvm", MVM_SIZES[:2] if quick else MVM_SIZES)

@@ -93,6 +93,25 @@ def call_time(fn, device="cuda", k: int = 20,
     return chain_time(make, k, reps, device, spin)
 
 
+def wall_time(fn, device="cuda", k: int = 10,
+              reps: int = MEASURE_REPETITIONS) -> float:
+    """Seconds per call of ``fn`` by the host clock, after one warm-up
+    call: the median over ``reps`` windows of k calls, each ending in a
+    synchronize on a CUDA device.  For a step whose collectives wait on
+    the host, where events around the launches would miss that wait."""
+    cuda = torch.device(device).type == "cuda"
+    fn()
+    if cuda:
+        torch.cuda.synchronize(device)
+
+    def window():
+        for _ in range(k):
+            fn()
+        if cuda:
+            torch.cuda.synchronize(device)
+    return median_time(window, reps) / k
+
+
 def device_name(device) -> str:
     """The card's name for a CUDA device; any other string is taken as a
     name already; a CPU device raises."""

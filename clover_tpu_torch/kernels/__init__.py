@@ -15,8 +15,14 @@ from .iteration import (
     iteration_chain_cuda, iteration_chain_eligible, iteration_chain_plain,
     iteration_cuda, iteration_eligible, iteration_plain,
 )
-from .mvm import axpy_plain, mvm4_cuda, mvm4_plain, mvm8_cuda, mvm8_plain
-from .mvm_batched import MAX_BATCH, mvm_batched_cuda, mvm_batched_plain
+from .mvm import (
+    axpy_plain, mvm4_cuda, mvm4_plain, mvm8_cuda, mvm8_plain, mvm_f32_cuda,
+    mvm_f32_plain,
+)
+from .mvm_batched import (
+    MAX_BATCH, mvm_batched_cuda, mvm_batched_f32_cuda, mvm_batched_f32_plain,
+    mvm_batched_plain,
+)
 from .probes import (
     dma_probe_cuda, dma_probe_plain, salted_probe_cuda, salted_probe_plain,
 )
@@ -56,6 +62,8 @@ KERNELS = {
     "mask4": mask4_cuda,
     "dma_probe": dma_probe_cuda,
     "salted_probe": salted_probe_cuda,
+    "mvm_f32": mvm_f32_cuda,
+    "mvm_batched_f32": mvm_batched_f32_cuda,
 }
 
 
@@ -81,7 +89,9 @@ __all__ = [
     "transpose8_cuda", "transpose8_plain",
     "mvm4_cuda", "mvm4_plain", "mvm8_cuda", "mvm8_plain",
     "axpy_cuda", "axpy_plain",
+    "mvm_f32_cuda", "mvm_f32_plain",
     "MAX_BATCH", "mvm_batched_cuda", "mvm_batched_plain",
+    "mvm_batched_f32_cuda", "mvm_batched_f32_plain",
     "threshold4_cuda", "threshold4_plain",
     "threshold8_cuda", "threshold8_plain",
     "iteration_cuda", "iteration_plain", "iteration_eligible",

@@ -10,9 +10,13 @@ Replaces clover_tpu/kernels/mvm.py mvm_pallas and mvm_axpy_pallas in the
 
 and returns ``(codes, scales)`` of the output: 4-bit packed for 4x4
 (:func:`mvm4_cuda`), 8-bit for 4x8 and 8x8 (:func:`mvm8_cuda`, whose first
-argument is A's bits).  The plain versions sum the block products in the
-kernel's order (:func:`blocked_sum`), so the two agree bit for bit; against
-clover_tpu, whose f32 sum order is XLA's, they agree within one output LSB.
+argument is A's bits).  The f32-output mode (:func:`mvm_f32_cuda`, replacing
+mvm_pallas_f32) returns y itself, f32[m_pad], for the sharded path, which
+sums the shards' y before the band requant; it takes sides that are
+multiples of 64, a shard's.  The plain versions sum the block products in
+the kernel's order (:func:`blocked_sum`), so the two agree bit for bit;
+against clover_tpu, whose f32 sum order is XLA's, they agree within one
+output LSB.
 """
 
 from __future__ import annotations
@@ -86,20 +90,37 @@ def _mvm_plain(bits_a, bits_x, a_codes, a_scales, x_codes, x_scales,
                       seed2, noise2)
 
 
-def _mvm_cuda(bits_a, bits_x, a_codes, a_scales, x_codes, x_scales,
-              u_codes, u_scales, alpha, seed1, noise1, seed2, noise2):
-    bits_out = 4 if bits_a == bits_x == 4 else 8
+MODES = ((4, 4), (4, 8), (8, 8))
+
+
+def check_operands(bits_a, bits_x, a_codes, a_scales, x_codes, x_scales,
+                   pad: int = 128, batch: tuple = ()):
+    """Raise unless the operands are those of mode bits_a x bits_x with
+    sides that are multiples of ``pad``, x carrying the leading ``batch``
+    dims; -> (device, m_pad, n_pad)."""
+    if (bits_a, bits_x) not in MODES:
+        raise ValueError(f"MVM modes are 4x4, 4x8 and 8x8, got "
+                         f"{bits_a}x{bits_x}")
     m_pad, wa = a_codes.shape
     n_pad = wa * 8 // bits_a
-    if m_pad % 128 or n_pad % 128:
-        raise ValueError(f"A codes {tuple(a_codes.shape)} not padded to 128")
+    if m_pad % pad or n_pad % pad:
+        raise ValueError(f"A codes {tuple(a_codes.shape)} not padded to {pad}")
     _build.check(a_codes, (m_pad, wa), torch.int8, "A codes")
     device = a_codes.device
     _build.check(a_scales, (m_pad // BLOCK, n_pad // BLOCK), torch.float32,
                  "A scales", device)
-    _build.check(x_codes, (n_pad * bits_x // 8,), torch.int8, "x codes",
-                 device)
-    _build.check(x_scales, (n_pad // BLOCK,), torch.float32, "x scales", device)
+    _build.check(x_codes, (*batch, n_pad * bits_x // 8), torch.int8,
+                 "x codes", device)
+    _build.check(x_scales, (*batch, n_pad // BLOCK), torch.float32,
+                 "x scales", device)
+    return device, m_pad, n_pad
+
+
+def _mvm_cuda(bits_a, bits_x, a_codes, a_scales, x_codes, x_scales,
+              u_codes, u_scales, alpha, seed1, noise1, seed2, noise2):
+    bits_out = 4 if bits_a == bits_x == 4 else 8
+    device, m_pad, n_pad = check_operands(bits_a, bits_x, a_codes, a_scales,
+                                          x_codes, x_scales)
     if (u_codes is None) != (u_scales is None):
         raise ValueError("u codes and scales come together")
     out_width = m_pad * bits_out // 8
@@ -150,13 +171,34 @@ def mvm8_cuda(bits_a: int, a_codes, a_scales, x_codes, x_scales,
               seed1: int = 0, noise1: bool = False, seed2: int = 0,
               noise2: bool = False):
     """Kernel form of :func:`mvm8_plain`."""
-    if bits_a not in (4, 8):
-        raise ValueError(f"A bits must be 4 or 8, got {bits_a}")
     out = _mvm_cuda(bits_a, 8, a_codes, a_scales, x_codes, x_scales, u_codes,
                     u_scales, alpha, seed1, noise1, seed2, noise2)
     mvm8_cuda.launches += 1
     return out
 
 
+def mvm_f32_plain(bits_a: int, bits_x: int, a_codes, a_scales, x_codes,
+                  x_scales) -> torch.Tensor:
+    """f32[m_pad] y = A x, no requant, summed in the kernel's order."""
+    return blocked_sum(blocked_products(a_codes, a_scales, x_codes, x_scales,
+                                        bits_a, bits_x), groups(bits_a))
+
+
+def mvm_f32_cuda(bits_a: int, bits_x: int, a_codes, a_scales, x_codes,
+                 x_scales) -> torch.Tensor:
+    """Kernel form of :func:`mvm_f32_plain`: one launch; sides multiples
+    of 64."""
+    device, m_pad, n_pad = check_operands(bits_a, bits_x, a_codes, a_scales,
+                                          x_codes, x_scales, pad=BLOCK)
+    out = torch.empty(m_pad, dtype=torch.float32, device=device)
+    P = _build.ptr
+    _build.launch("clover_mvm_f32", device, P(a_codes), P(a_scales),
+                  P(x_codes), P(x_scales), P(out), m_pad, n_pad, bits_a,
+                  bits_x)
+    mvm_f32_cuda.launches += 1
+    return out
+
+
 mvm4_cuda.launches = 0
 mvm8_cuda.launches = 0
+mvm_f32_cuda.launches = 0

@@ -10,6 +10,11 @@ matrix A.  Vector j's output is the single MVM's
 (clover_tpu/ops/gemm.py); the plain version is exactly those B calls, and
 the kernel agrees with it bit for bit, deterministic and SR.  Output codes
 are ``(B, m_pad * bo / 8)`` int8 and scales ``(B, m_pad / 64)`` f32.
+
+The f32-output mode (:func:`mvm_batched_f32_cuda`, replacing
+mvm_batched_pallas_f32) returns f32[B, m_pad], each row the single f32
+MVM's (:func:`~clover_tpu_torch.kernels.mvm.mvm_f32_plain`), for the
+sharded server; it takes sides that are multiples of 64.
 """
 
 from __future__ import annotations
@@ -19,13 +24,20 @@ import torch
 from ..formats import BLOCK
 from . import _build
 from .dispatch import wrap_i32
-from .mvm import _mvm_plain
+from .mvm import _mvm_plain, check_operands, mvm_f32_plain
 
 MAX_BATCH = 32
 
 
 def _out_bits(bits_a: int, bits_x: int) -> int:
     return 4 if bits_a == bits_x == 4 else 8
+
+
+def _batch_of(x_codes) -> int:
+    b = x_codes.shape[0]
+    if not 1 <= b <= MAX_BATCH:
+        raise ValueError(f"batch {b} outside 1..{MAX_BATCH}")
+    return b
 
 
 def mvm_batched_plain(bits_a: int, bits_x: int, a_codes, a_scales, x_codes,
@@ -42,24 +54,9 @@ def mvm_batched_cuda(bits_a: int, bits_x: int, a_codes, a_scales, x_codes,
                      x_scales, seed: int = 0, noise: bool = False):
     """Kernel form of :func:`mvm_batched_plain`: one launch for
     1 <= B <= MAX_BATCH."""
-    if (bits_a, bits_x) not in ((4, 4), (4, 8), (8, 8)):
-        raise ValueError(f"batched MVM modes are 4x4, 4x8 and 8x8, got "
-                         f"{bits_a}x{bits_x}")
-    m_pad, wa = a_codes.shape
-    n_pad = wa * 8 // bits_a
-    if m_pad % 128 or n_pad % 128:
-        raise ValueError(f"A codes {tuple(a_codes.shape)} not padded to 128")
-    b = x_codes.shape[0]
-    if not 1 <= b <= MAX_BATCH:
-        raise ValueError(f"batch {b} outside 1..{MAX_BATCH}")
-    _build.check(a_codes, (m_pad, wa), torch.int8, "A codes")
-    device = a_codes.device
-    _build.check(a_scales, (m_pad // BLOCK, n_pad // BLOCK), torch.float32,
-                 "A scales", device)
-    _build.check(x_codes, (b, n_pad * bits_x // 8), torch.int8, "x codes",
-                 device)
-    _build.check(x_scales, (b, n_pad // BLOCK), torch.float32, "x scales",
-                 device)
+    b = _batch_of(x_codes)
+    device, m_pad, n_pad = check_operands(bits_a, bits_x, a_codes, a_scales,
+                                          x_codes, x_scales, batch=(b,))
     bits_out = _out_bits(bits_a, bits_x)
     out = torch.empty(b, m_pad * bits_out // 8, dtype=torch.int8,
                       device=device)
@@ -73,4 +70,30 @@ def mvm_batched_cuda(bits_a: int, bits_x: int, a_codes, a_scales, x_codes,
     return out, out_scales
 
 
+def mvm_batched_f32_plain(bits_a: int, bits_x: int, a_codes, a_scales,
+                          x_codes, x_scales) -> torch.Tensor:
+    """f32[B, m_pad]: B single f32 MVMs; any B."""
+    return torch.stack([mvm_f32_plain(bits_a, bits_x, a_codes, a_scales, xc,
+                                      xs)
+                        for xc, xs in zip(x_codes, x_scales)])
+
+
+def mvm_batched_f32_cuda(bits_a: int, bits_x: int, a_codes, a_scales,
+                         x_codes, x_scales) -> torch.Tensor:
+    """Kernel form of :func:`mvm_batched_f32_plain`: one launch for
+    1 <= B <= MAX_BATCH; sides multiples of 64."""
+    b = _batch_of(x_codes)
+    device, m_pad, n_pad = check_operands(bits_a, bits_x, a_codes, a_scales,
+                                          x_codes, x_scales, pad=BLOCK,
+                                          batch=(b,))
+    out = torch.empty(b, m_pad, dtype=torch.float32, device=device)
+    P = _build.ptr
+    _build.launch("clover_mvm_batched_f32", device, P(a_codes), P(a_scales),
+                  P(x_codes), P(x_scales), P(out), m_pad, n_pad, b, bits_a,
+                  bits_x)
+    mvm_batched_f32_cuda.launches += 1
+    return out
+
+
 mvm_batched_cuda.launches = 0
+mvm_batched_f32_cuda.launches = 0

@@ -9,6 +9,9 @@ the SR seed ``seed + j`` of its position in the whole batch, so a result
 does not depend on how the batch was split, and equals ``mvm(A, x_j,
 seed + j)`` bit for bit.
 
+``mvm_batched_f32_fast``: the batched MVM without the requant, f32[B, m_pad],
+through the kernel's f32-output mode (the sharded server's per-shard step).
+
 ``gemm_f32``: C = restore(A) @ B for an f32 B, the per-block partial
 products scaled afterwards; plain torch on any device (clover_tpu computes
 it in XLA, outside any Pallas kernel).
@@ -22,8 +25,10 @@ from ..formats import (
     BLOCK, QMat4, QMat16, QMat32, stack_vectors, unpack_nibbles, vector_at,
 )
 from ..kernels.dispatch import on_cuda, seed_from, wrap_i32
+from ..kernels.mvm import mvm_f32_cuda
 from ..kernels.mvm_batched import (
-    MAX_BATCH, mvm_batched_cuda, mvm_batched_plain,
+    MAX_BATCH, mvm_batched_cuda, mvm_batched_f32_cuda, mvm_batched_f32_plain,
+    mvm_batched_plain,
 )
 from . import _core
 from .mvm import _fused, mvm, mvm_f32
@@ -70,6 +75,26 @@ def mvm_batched_f32(A, xs) -> torch.Tensor:
     """f32[B, m_pad] batched MVM, no output requantization."""
     return torch.stack([mvm_f32(A, vector_at(xs, j))
                         for j in range(_batch(xs))])
+
+
+def mvm_batched_f32_fast(A, xs) -> torch.Tensor:
+    """Like :func:`mvm_batched_f32`, through the batched MVM kernel's
+    f32-output mode for the int modes (B = 1 the single kernel's, B >
+    MAX_BATCH split into launches of at most MAX_BATCH; the plain version
+    on the CPU) -- the per-shard step of parallel/ops.mvm_batched_psum."""
+    if _fused(A, xs) is None:
+        return mvm_batched_f32(A, xs)
+    bits = (A.bits, xs.bits)
+    if not on_cuda(A.codes, xs.codes):
+        return mvm_batched_f32_plain(*bits, A.codes, A.scales, xs.codes,
+                                     xs.scales)
+    if _batch(xs) == 1:
+        return mvm_f32_cuda(*bits, A.codes, A.scales, xs.codes[0],
+                            xs.scales[0])[None]
+    return torch.cat([mvm_batched_f32_cuda(*bits, A.codes, A.scales,
+                                           xs.codes[j:j + MAX_BATCH],
+                                           xs.scales[j:j + MAX_BATCH])
+                      for j in range(0, _batch(xs), MAX_BATCH)])
 
 
 def gemm_f32(A, B: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,7 @@ from ..formats import QMat4, QMat8, QMat16, QMat32, QVec4, QVec8, QVec16, QVec32
 from ..kernels.dispatch import on_cuda, seed_from
 from ..kernels.mvm import (
     blocked_products, mvm4_cuda, mvm4_plain, mvm8_cuda, mvm8_plain,
+    mvm_f32_cuda, mvm_f32_plain,
 )
 from . import _core
 from .axpy import scale_and_add
@@ -45,6 +46,17 @@ def mvm_f32(A, x) -> torch.Tensor:
         else restore_vec(x).values
     with _core.ieee_fp32():
         return af @ xf
+
+
+def mvm_f32_fast(A, x) -> torch.Tensor:
+    """Like :func:`mvm_f32`, through the MVM kernel's f32-output mode for
+    the int combinations 4x4, 4x8 and 8x8 (its plain version on the CPU,
+    summed in the kernel's order).  The sharded path (parallel/ops.mvm_psum)
+    runs this per shard; any other combination is :func:`mvm_f32`."""
+    if _fused(A, x) is None:
+        return mvm_f32(A, x)
+    fn = mvm_f32_cuda if on_cuda(A.codes, x.codes) else mvm_f32_plain
+    return fn(A.bits, x.bits, A.codes, A.scales, x.codes, x.scales)
 
 
 def _fused(A, x):

@@ -181,7 +181,8 @@ def test_build_finds_sources_and_refuses_without_nvcc(monkeypatch, tmp_path):
     assert set(_build.SIGNATURES) == {
         "clover_quantize_vec", "clover_quantize_mat", "clover_restore_vec",
         "clover_transpose", "clover_mvm", "clover_threshold", "clover_axpy",
-        "clover_mvm_batched", "clover_iteration_occupancy",
+        "clover_mvm_batched", "clover_mvm_f32", "clover_mvm_batched_f32",
+        "clover_iteration_occupancy",
         "clover_iteration", "clover_iteration_chain", "clover_restore_mat",
         "clover_dot", "clover_hist4", "clover_mask4", "clover_dma_probe",
         "clover_salted_probe"}

@@ -177,9 +177,16 @@ def test_slots_rotate_only_small_operands_on_the_card():
     assert perf._slots(16, "cuda") == 4096
 
 
-def test_run_perf_sharded_raises():
-    with pytest.raises(NotImplementedError, match="parallel"):
-        perf.run_perf(lambda *_: None, sharded=True, device="cpu")
+def test_run_perf_sharded_raises(monkeypatch):
+    """-p --sharded runs on the card: with no card and no --device cpu it
+    raises, and falls back to nothing (its rows on a world of one are in
+    tests/test_torch_parallel.py)."""
+    import torch
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        perf.run_perf(lambda *_: None, sharded=True)
 
 
 def test_cli_reaches_run_perf(monkeypatch, capsys):

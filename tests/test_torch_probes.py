@@ -83,7 +83,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         probes.dma_probe_cuda(torch.zeros(65, 128, dtype=torch.int8))
     assert kernels.KERNELS["dma_probe"] is probes.dma_probe_cuda
     assert kernels.KERNELS["salted_probe"] is probes.salted_probe_cuda
-    assert len(kernels.KERNELS) == 19
+    assert len(kernels.KERNELS) == 21
 
 
 def test_dispatch_reaches_the_kernels(monkeypatch):

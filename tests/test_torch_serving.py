@@ -125,8 +125,10 @@ def test_server_error_propagates():
 
 
 def test_server_refuses_a_mesh_and_odd_batch_limits():
+    """A mesh needs this rank's shard of the matrix, not the whole one
+    (the sharded server itself is in tests/test_torch_parallel.py)."""
     A = tt.quantize(torch.ones(128, 128), 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="ShardedMatrix"):
         MVMServer(A, mesh=object())
     with pytest.raises(ValueError):
         MVMServer(A, max_batch=6)

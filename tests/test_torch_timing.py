@@ -3,6 +3,7 @@ formulas (harness/timing.py gbs and pct_roofline), with the card's
 data-sheet rate in place of the TPU's."""
 
 import math
+import time
 
 import pytest
 import torch
@@ -59,6 +60,19 @@ def test_chain_and_median_time_on_the_cpu():
     assert math.isfinite(t) and t > 0
     t = timing.call_time(lambda: x * 3, "cpu", k=4, reps=3)
     assert math.isfinite(t) and t > 0
+
+
+def test_wall_time_counts_every_call_and_the_host_wait():
+    """wall_time: one warm-up, then reps windows of k calls; a call that
+    waits on the host (here a sleep) is in its time."""
+    calls = []
+
+    def step():
+        calls.append(None)
+        time.sleep(0.002)
+    t = timing.wall_time(step, "cpu", k=3, reps=3)
+    assert len(calls) == 1 + 3 * 3
+    assert 0.002 <= t < 1.0
 
 
 def test_roofline_report_has_the_reference_header():
