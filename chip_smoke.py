@@ -50,8 +50,13 @@ Phases, each of which raises on failure:
    and the nvcc build of clover_tpu_torch/csrc/*.cu (into build/);
 2. each kernel against its plain torch version on the card, at the main
    paths' shapes and at a ragged 200x300, deterministic and SR:
-   quantize, restore, transpose and threshold bit-identical, MVM/AXPY
-   codes within 1 LSB and scales within rtol 1e-6; the standalone AXPY
+   quantize, restore, transpose, threshold and the MVM+AXPY (both legs
+   of every mode, with and without the AXPY) bit-identical; the MVM at
+   the shapes its launch geometry makes edge cases (MVM_EDGES,
+   F32_EDGES: one and two bands, 5 and 10 bands, rows of >= 16 chunks,
+   partial last chunks) in every mode at every rows-per-warp geometry of
+   csrc/mvm.cu, det and SR, with and without the AXPY, bit-identical;
+   the standalone AXPY
    bit-identical (single and stacked), and mvm -> scale_and_add equal to
    the fused mvm_axpy; the batched MVM bit-identical to per-vector plain
    MVMs with seeds seed + j (16384x16384 at B = 2, 3, 8, 32; 8192x16384
@@ -114,7 +119,9 @@ Phases, each of which raises on failure:
     10 deterministic iterations with mu = 1/m; exact launch counts (two
     MVM+AXPY legs, one hist4 and one mask4 per iteration, no threshold4),
     the solution bit-identical to an unfused loop through the radix
-    threshold kernel, no host sync in the solve, the error (finite),
+    threshold kernel, no host sync in the solve; both MVM legs
+    (2048x524288 Phi, 524288x2048 PhiT) bit-identical to mvm4_plain on the
+    card, det and SR, with their times and TB/s; the error (finite),
     iterations/s and the device's busy share;
 11. ``-p --quick`` through the CLI: exit 0, every row printed, none but
     the L2-warm rows above 100% of the card's memory rate, each 4/8-bit
@@ -149,13 +156,16 @@ Phases, each of which raises on failure:
 The line before the last is ``{"kernels": [...]}``, each kernel with its
 bound: the larger of its bytes (every input read once, every output
 written once) over the card's memory rate and its int8 operations over
-the int8 peak (NVIDIA's data sheet); the last is ``{"ok": true,
+the int8 peak (NVIDIA's data sheet); mvm4's entry also carries phase
+10's 2048x524288 Phi leg (``large_n_phi_ms``, ``large_n_phi_bound_ms``);
+the last is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device it prints no result and exits
 2.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -252,6 +262,13 @@ KERNEL_INFO = {
     "mvm_batched_f32": ("clover_tpu_torch/csrc/mvm_batched.cu",
                         "clover_tpu/kernels/mvm_batched.py:390"),
 }
+# shapes that csrc/mvm.cu's geometry makes edge cases, (rows, cols): the
+# requantizing MVM's (sides multiples of 128) -- two bands with rows of
+# 16512 columns (>= 16 chunks a group, a partial last chunk), 10 bands (no
+# multiple of 4 or 8) with a partial chunk -- and its f32 mode's
+# (multiples of 64) -- one band with a partial chunk, 5 bands of 16448
+MVM_EDGES = ((128, 16512), (640, 1152))
+F32_EDGES = ((64, 576), (320, 16448))
 F32_BATCHES = (2, 8, 32)      # mvm_batched_f32 checks at NS x NS
 SHARD = (M // 2, N // 4)      # a 2x4 mesh's block of the M x N matrix
 # the other blocks phase 14 gives the f32 modes on its 2x4 mesh: the
@@ -321,9 +338,11 @@ class Report:
         self.bound = {}      # name -> (ms, "bytes" or "operations")
         self.library_ms = dict.fromkeys(KERNEL_INFO)
         self.leg_ms = {}     # (mode, leg) -> kernel ms of an MVM+AXPY leg
+        self.large = {}      # leg -> (ms, bound ms) of the large-n 4x4 legs
         self.sweep = {}      # B -> batched MVM ms, 4x4 at NS x NS
 
-    def exact(self, name: str, what: str, got, want, bits: int = 4):
+    def exact(self, name: str, what: str, got, want, bits: int = 4,
+              say: bool = True):
         """Kernel output must equal the plain one: (codes, scales) pairs,
         or f32 values compared bit for bit."""
         import torch
@@ -339,20 +358,8 @@ class Report:
             raise AssertionError(f"{name} {what}: kernel != plain ({bad})")
         self.err[name] = max(self.err[name],
                              float((got - want).abs().max()))
-        print(f"  {name:13s} {what:40s} bit-identical")
-
-    def close(self, name: str, what: str, got, want, bits: int = 4):
-        """MVM/AXPY: codes within 1 LSB, scales within MVM_SCALE_RTOL."""
-        (gc, gs), (wc, ws) = got, want
-        lsb = int((codes_of(gc, bits).int() - codes_of(wc, bits).int())
-                  .abs().max())
-        rel = float(((gs - ws).abs() / ws.abs()).max())
-        if lsb > 1 or rel > MVM_SCALE_RTOL:
-            raise AssertionError(f"{name} {what}: codes differ by {lsb} LSB, "
-                                 f"scales by rtol {rel:.3g}")
-        self.err[name] = max(self.err[name], float(
-            (dequant(gc, gs, bits) - dequant(wc, ws, bits)).abs().max()))
-        print(f"  {name:13s} {what:40s} max {lsb} LSB, scale rtol {rel:.3g}")
+        if say:
+            print(f"  {name:13s} {what:40s} bit-identical")
 
     def time(self, name: str, kernel, plain, nbytes: int, ops: float = 0.0,
              library=None):
@@ -405,6 +412,76 @@ def mvm_forms(bits_a: int, bits_x: int):
         return mvm4_cuda, mvm4_plain
     return (functools.partial(mvm8_cuda, bits_a),
             functools.partial(mvm8_plain, bits_a))
+
+
+def mvm_bytes(m: int, n: int, bits_a: int, bits_x: int) -> int:
+    """Bytes an MVM+AXPY leg must move: A and its scales, x, u and the
+    output, each once."""
+    bits_out = 4 if bits_a == bits_x == 4 else 8
+    return (m * n * bits_a // 8 + 4 * (m // 64) * (n // 64)
+            + qbytes(n, bits_x) + 2 * qbytes(m, bits_out))
+
+
+@contextlib.contextmanager
+def rows_forced(rows: int):
+    """csrc/mvm.cu launched at ``rows`` rows per warp whatever the shape
+    (kernels/mvm.py rows_per_warp is the rule otherwise)."""
+    from clover_tpu_torch.kernels import mvm as kmvm
+    rule = kmvm.rows_per_warp
+    kmvm.rows_per_warp = lambda m_pad, sms: rows
+    try:
+        yield
+    finally:
+        kmvm.rows_per_warp = rule
+
+
+def check_mvm_edges(rep: Report, gen, modes):
+    """The MVM kernel's edge shapes (MVM_EDGES, F32_EDGES) in every mode
+    and at every rows-per-warp geometry, det and SR, with and without the
+    AXPY: bit-identical to the plain versions."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch.kernels import mvm_f32_cuda, mvm_f32_plain
+    from clover_tpu_torch.kernels.mvm import ROWS_PER_WARP
+    dev = gen.device
+    every = ",".join(map(str, ROWS_PER_WARP))
+    for bits_a, bits_x in MODES:
+        mode, name = f"{bits_a}x{bits_x}", f"mvm{bits_x}"
+        cuda, plain = mvm_forms(bits_a, bits_x)
+        for m, n in MVM_EDGES:
+            a = tt.quantize(torch.rand(m, n, generator=gen, device=dev) * 2
+                            - 1, bits_a)
+            x = tt.quantize(torch.randn(n, generator=gen, device=dev), bits_x)
+            u = tt.quantize(torch.rand(m, generator=gen, device=dev) * 2 - 1,
+                            bits_x)
+            for what, seed, noise in modes:
+                args = (a.codes, a.scales, x.codes, x.scales, u.codes,
+                        u.scales, -0.61)
+                for axpy, ops in (("AXPY", args), ("no AXPY", args[:4])):
+                    sr = dict(seed1=seed, noise1=noise)
+                    if axpy == "AXPY":
+                        sr.update(seed2=seed + 1, noise2=noise)
+                    want = plain(*ops, **sr)
+                    for rows in ROWS_PER_WARP:
+                        with rows_forced(rows):
+                            rep.exact(name, f"{mode} {m}x{n} R={rows}",
+                                      cuda(*ops, **sr), want, bits_x,
+                                      say=False)
+                    print(f"  {name:13s} {mode} {m}x{n} {axpy} {what}: "
+                          f"bit-identical at R={every}")
+        for m, n in F32_EDGES:
+            ops = f32_operands(
+                torch.rand(m, n, generator=gen, device=dev) * 2 - 1,
+                torch.randn(n, generator=gen, device=dev), bits_a, bits_x,
+                (m, n))
+            want = mvm_f32_plain(bits_a, bits_x, *ops)
+            for rows in ROWS_PER_WARP:
+                with rows_forced(rows):
+                    rep.exact("mvm_f32", f"{mode} {m}x{n} R={rows}",
+                              mvm_f32_cuda(bits_a, bits_x, *ops), want,
+                              say=False)
+            print(f"  {'mvm_f32':13s} {mode} {m}x{n}: bit-identical at "
+                  f"R={every}")
 
 
 def check_quantize(rep: Report, phi, y, xf, modes):
@@ -460,13 +537,13 @@ def check_mvm(rep: Report, qphi, phit, qy, qx, modes):
         for what, seed, noise in modes:
             s2 = seed + 1
             t2 = cuda(*leg1, seed, noise, s2, noise)
-            rep.close(name, f"{mode} Phi leg alpha=-1 {what}", t2,
+            rep.exact(name, f"{mode} Phi leg alpha=-1 {what}", t2,
                       plain(*leg1, seed, noise, s2, noise), bits_x)
             leg2 = (*phit[bits_a], *t2, x.codes, x.scales, mu)
-            rep.close(name, f"{mode} PhiT leg alpha=mu {what}",
+            rep.exact(name, f"{mode} PhiT leg alpha=mu {what}",
                       cuda(*leg2, seed, noise, s2, noise),
                       plain(*leg2, seed, noise, s2, noise), bits_x)
-            rep.close(name, f"{mode} Phi mvm (no AXPY) {what}",
+            rep.exact(name, f"{mode} Phi mvm (no AXPY) {what}",
                       cuda(*leg1[:4], seed1=seed, noise1=noise),
                       plain(*leg1[:4], seed1=seed, noise1=noise), bits_x)
         leg2 = (*phit[bits_a], *cuda(*leg1), x.codes, x.scales, mu)
@@ -474,12 +551,9 @@ def check_mvm(rep: Report, qphi, phit, qy, qx, modes):
         # the per-kernel time is the Phi leg of its heaviest mode (8x8 for
         # mvm8); every leg's time is printed
         if mode != "4x8":
-            bits_out = 4 if bits_x == 4 else 8
             rep.time(name, lambda: cuda(*leg1, 1, True, 2, True),
                      lambda: plain(*leg1, 1, True, 2, True),
-                     M * N * bits_a // 8 + 4 * (M // 64) * (N // 64)
-                     + qbytes(N, bits_x) + 2 * qbytes(M, bits_out),
-                     ops=2 * M * N)
+                     mvm_bytes(M, N, bits_a, bits_x), ops=2 * M * N)
         rep.time_leg(mode, "Phi", lambda: cuda(*leg1, 1, True, 2, True))
         rep.time_leg(mode, "PhiT", lambda: cuda(*leg2, 1, True, 2, True))
     return iterates
@@ -563,8 +637,11 @@ def check_mvm_f32(rep: Report, qphi, mats, gen):
     ms = median_ms(lambda: mvm_f32_cuda(4, 4, *ring[next(turn) % len(ring)]),
                    5, 20)
     del ring
-    print(f"  mvm_f32       4x4 {rows}x{cols} (a 2x4 shard, {rows // 64} "
-          f"CTAs, a ring of copies past the L2): kernel {ms:.4f} ms, "
+    from clover_tpu_torch.kernels import mvm as kmvm
+    ctas = kmvm.launch_geometry(rows, kmvm.rows_per_warp(
+        rows, torch.cuda.get_device_properties(0).multi_processor_count))[0]
+    print(f"  mvm_f32       4x4 {rows}x{cols} (a 2x4 shard, {ctas} CTAs, a "
+          f"ring of copies past the L2): kernel {ms:.4f} ms, "
           f"{nbytes / ms / 1e6:.1f} GB/s, bytes bound "
           f"{nbytes / hbm_rate() * 1e3:.4f} ms")
     batch = f32_operands(qphi[4], xf[:BATCH, :N], 4, 4)
@@ -664,9 +741,9 @@ def check_ragged(rep: Report, gen, modes):
             cuda, plain = mvm_forms(bits_a, bits_x)
             args = (qa.codes, qa.scales, qv.codes, qv.scales, qu.codes,
                     qu.scales, 0.37, seed, noise, seed + 1, noise)
-            rep.close(f"mvm{bits_x}", f"{bits_a}x{bits_x} 200x300 alpha=0.37 "
+            rep.exact(f"mvm{bits_x}", f"{bits_a}x{bits_x} 200x300 alpha=0.37 "
                       f"{mode}", cuda(*args), plain(*args), bits_x)
-            rep.close(f"mvm{bits_x}", f"{bits_a}x{bits_x} 200x300 no AXPY "
+            rep.exact(f"mvm{bits_x}", f"{bits_a}x{bits_x} 200x300 no AXPY "
                       f"{mode}", cuda(*args[:4], seed1=seed, noise1=noise),
                       plain(*args[:4], seed1=seed, noise1=noise), bits_x)
 
@@ -1192,6 +1269,7 @@ def phase_kernels(rep: Report, phi, mats, gen):
     qy = {bits: tt.quantize(y, bits) for bits in (4, 8)}
     qx = {bits: tt.quantize(xf, bits) for bits in (4, 8)}
     iterates = check_mvm(rep, qphi, phit, qy, qx, modes)
+    check_mvm_edges(rep, gen, modes)
     check_threshold(rep, iterates, xf, gen)
     check_ragged(rep, gen, modes)
     check_axpy(rep, gen, qphi, qy, qx, modes)
@@ -1800,9 +1878,10 @@ def phase_validate():
     return counts
 
 
-def phase_large_iht():
-    """The large-n 4-bit IHT through ``tt.iht``: the hybrid threshold; ->
-    the launch counts of its solve."""
+def phase_large_iht(rep: Report):
+    """The large-n 4-bit IHT through ``tt.iht``: the hybrid threshold; both
+    MVM legs against the plain version, their times and TB/s; -> the
+    launch counts of its solve."""
     import torch
     import clover_tpu_torch as tt
     from clover_tpu_torch import kernels as kn
@@ -1852,8 +1931,21 @@ def phase_large_iht():
             -1.0)
     t2 = kn.mvm4_cuda(*leg1)
     leg2 = (qphit.codes, qphit.scales, *t2, x.codes, x.scales, mu)
-    kern = {"Phi leg": median_ms(lambda: kn.mvm4_cuda(*leg1), 5, 20),
-            "PhiT leg": median_ms(lambda: kn.mvm4_cuda(*leg2), 5, 20),
+    for leg, args, (rows, cols) in (("Phi", leg1, (m, n)),
+                                    ("PhiT", leg2, (n, m))):
+        for what, seeds in (("det", ()), ("SR", (7, True, 8, True))):
+            rep.exact("mvm4", f"{rows}x{cols} {leg} leg {what}",
+                      kn.mvm4_cuda(*args, *seeds),
+                      kn.mvm4_plain(*args, *seeds))
+        torch.cuda.empty_cache()
+        ms = median_ms(lambda: kn.mvm4_cuda(*args), 5, 20)
+        nbytes = mvm_bytes(rows, cols, 4, 4)
+        rep.large[leg] = (ms, nbytes / hbm_rate() * 1e3)
+        print(f"  {leg} leg {rows}x{cols}: {ms:.4f} ms, "
+              f"{nbytes / ms / 1e9:.2f} TB/s (bound {rep.large[leg][1]:.4f} "
+              f"ms, {nbytes / 1e6:.1f} MB)")
+    kern = {"Phi leg": rep.large["Phi"][0],
+            "PhiT leg": rep.large["PhiT"][0],
             "hybrid threshold": median_ms(lambda: tt.threshold(x, k), 5, 20,
                                           HOST_SPIN_CYCLES),
             "radix threshold4_cuda": median_ms(
@@ -2531,7 +2623,7 @@ def main() -> int:
     runs.append(phase_small_iht())
     runs.append(phase_accuracy())
     runs.append(phase_validate())
-    runs.append(phase_large_iht())
+    runs.append(phase_large_iht(rep))
     runs.append(phase_perf())
     runs.append(phase_search())
     phase_checkpoint(torch.Generator(device="cuda").manual_seed(SEED + 5))
@@ -2552,6 +2644,9 @@ def main() -> int:
                 "bound_by": rep.bound[name][1],
                 "library_ms": rep.library_ms[name]}
                for name, (src, replaces) in KERNEL_INFO.items()]
+    # beside mvm4's 8192x16384 leg: phase 10's 2048x524288 Phi leg
+    large = kernels[list(KERNEL_INFO).index("mvm4")]
+    large["large_n_phi_ms"], large["large_n_phi_bound_ms"] = rep.large["Phi"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

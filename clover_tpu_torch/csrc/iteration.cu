@@ -12,7 +12,8 @@
 //
 // Numbers: bit-identical to the unfused kernel sequence -- two mvm.cu
 // launches, then one threshold.cu launch -- in deterministic and SR modes.
-// Each band runs mvm_band (mvm.cuh), the body of mvm_kernel; phase C runs
+// Each band runs mvm_band (mvm.cuh), whose row sums are mvm_kernel's (mvm.cu
+// walks every row in the same chunks, groups and order); phase C runs
 // threshold_select (threshold.cuh), the body of threshold_kernel, whose
 // kept set is the unique golden one at any thread count; the SR noise of
 // an element is Philox(seed, element index, leg) as in mvm.cu, and

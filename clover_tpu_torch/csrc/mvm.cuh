@@ -1,7 +1,9 @@
-// Geometry, nibble unpacking and the one-band body shared by the MVM
-// kernels.  The single (mvm.cu), batched (mvm_batched.cu) and whole-iteration
-// (iteration.cu) kernels walk a row of A in the same chunks, groups and
-// lanes, so their block sums are the single kernel's, op for op.
+// Geometry, nibble unpacking and the one-band body of the MVM kernels.
+// The batched (mvm_batched.cu) and whole-iteration (iteration.cu, through
+// mvm_band) kernels and the single kernel (mvm.cu, its own body: a band
+// split over a cluster, loads kept in flight) walk a row of A in the same
+// chunks, groups and lanes, so their block sums and row sums are equal, op
+// for op.
 #pragma once
 #include "common.cuh"
 

@@ -1,12 +1,14 @@
-// Measurement probes: the streaming floor of the fused MVM's geometry.
+// Measurement probes: the streaming floor of the one-CTA-per-band geometry.
 //
 // Replaces clover_tpu/kernels/probes.py _build_probe (dma_probe_call) and
 // _build_salted_probe (dma_probe_stream, launch_probe).  Both stream a
-// packed 4- or 8-bit matrix of `rows` rows of `wa` bytes through mvm.cu's
-// CTA layout: one CTA per 64-row band, MV_THREADS threads, 8 warps x 8
-// rows, per 512-byte chunk of a row one 16-byte load per lane, so each lane
-// keeps 8 loads in flight (mvm.cuh).  The time is the floor for exactly that
-// geometry, with its known limit of rows/64 CTAs.
+// packed 4- or 8-bit matrix of `rows` rows of `wa` bytes through the CTA
+// layout of mvm.cuh mvm_band (the whole-iteration kernels', and the fused
+// MVM's before mvm.cu split a band over a cluster): one CTA per 64-row
+// band, MV_THREADS threads, 8 warps x 8 rows, per 512-byte chunk of a row
+// one 16-byte load per lane, so each lane keeps 8 loads in flight.  The
+// time is the floor for exactly that geometry, with its limit of rows/64
+// CTAs; mvm.cu's geometry can beat it.
 //
 // What they compute departs from the TPU kernels.  There a tile's DMA moved
 // the whole tile whatever the 8x128 touch read; here a load whose value

@@ -20,9 +20,12 @@ thresholds at n <= 2^20 -- say "L2-warm" in their name and give no %spec.
 Any other row above 100% of spec raises: it would be reading a cache.
 
 The fused MVM rows sit beside the probe floor (``kernels/probes.py``): the
-dma probe streams the same matrices through the MVM's own CTA layout, and
-each 4/8-bit MVM row prints its rate as a share of that floor, measured in
-the same run, as bench.py reports its headline against the TPU's probe.
+dma probe streams the same matrices through one CTA per 64-row band (the
+layout of the whole-iteration kernels, and the MVM's before it split a
+band over a cluster of CTAs), and each 4/8-bit MVM row prints its rate as
+a share of that floor, measured in the same run, as bench.py reports its
+headline against the TPU's probe.  The MVM keeps more loads in flight than
+that layout, so a share above 100% is no error.
 The fp32 baselines are torch calls (cuBLAS for the MVM) in IEEE fp32.
 """
 

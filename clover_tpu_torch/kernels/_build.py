@@ -41,8 +41,9 @@ SIGNATURES = {
     "clover_mask4": (_P, _P, _P, _P, _P, _P, _I64, _P),
     "clover_transpose": (_P, _P, _I64, _I64, _I32, _P),
     "clover_mvm": (_P, _P, _P, _P, _P, _P, _F32, _P, _P, _I64, _I64,
-                   _I32, _I32, _I32, _U32, _I32, _U32, _P),
-    "clover_mvm_f32": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
+                   _I32, _I32, _I32, _U32, _I32, _U32, _I32, _P),
+    "clover_mvm_f32": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                       _P),
     "clover_threshold": (_P, _P, _P, _I64, _I64, _I32, _I64, _P),
     "clover_axpy": (_P, _P, _P, _P, _F32, _P, _P, _I64, _I32, _I32, _U32, _P),
     "clover_mvm_batched": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I32, _I32,
@@ -153,16 +154,29 @@ def library() -> Library:
     return Library(lib=lib, path=path, build_seconds=seconds, log=log)
 
 
+@functools.cache
+def _entry(name: str):
+    """The bound C entry point ``name`` (building the library first)."""
+    return getattr(library().lib, name)
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry ``name`` on ``device``'s current stream; raise on error.
 
     Pointer arguments are passed as ints (``tensor.data_ptr()``) or None.
+    The stream is read as a raw handle (``torch._C``'s accessors, which
+    torch's own generated code uses), and ``device`` is made current
+    around the call only when it is not already: a wrapper call's host
+    time is most of a small kernel's.
     """
-    built = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(built.lib, name)(*args, stream)
-    _raise_on(built, name, rc)
+    fn, index = _entry(name), device.index
+    if torch._C._cuda_getDevice() == index:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if rc:
+        _raise_on(library(), name, rc)
 
 
 def call(name: str, device: torch.device, *args) -> None:
@@ -184,10 +198,11 @@ def check(t: torch.Tensor, shape: tuple, dtype: torch.dtype, name: str,
           device: torch.device | None = None):
     """Raise unless ``t`` is a contiguous, 16-byte aligned CUDA tensor of
     ``dtype`` and ``shape`` (on ``device`` when given)."""
-    if t.device.type != "cuda" or (device is not None and t.device != device):
+    where = t.device
+    if where.type != "cuda" or (device is not None and where != device):
         raise ValueError(f"{name}: expected a tensor on "
-                         f"{device or 'a CUDA device'}, got {t.device}")
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+                         f"{device or 'a CUDA device'}, got {where}")
+    if t.dtype != dtype or t.shape != shape:
         raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, "
                          f"got {t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous():

@@ -21,6 +21,8 @@ output LSB.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -92,6 +94,37 @@ def _mvm_plain(bits_a, bits_x, a_codes, a_scales, x_codes, x_scales,
 
 MODES = ((4, 4), (4, 8), (8, 8))
 
+# Launch geometry of csrc/mvm.cu: CTAs of WARPS warps, each warp R rows,
+# so a 64-row band spans a cluster of WARPS / R CTAs
+WARPS = 8
+ROWS_PER_WARP = (8, 4, 2)
+
+
+def rows_per_warp(m_pad: int, sms: int) -> int:
+    """Rows each warp of the MVM kernel owns at ``m_pad`` rows on a card of
+    ``sms`` SMs: the most (the most loads in flight per warp, x unpacked
+    for the most rows) that still gives every SM a CTA, else the fewest.
+    On the H100 this is the fastest geometry at every shape kernel_ab.py
+    --rows times (2048 to 524288 rows)."""
+    bands = m_pad // BLOCK
+    for r in ROWS_PER_WARP:
+        if bands * (WARPS // r) >= sms:
+            return r
+    return ROWS_PER_WARP[-1]
+
+
+def launch_geometry(m_pad: int, rows: int) -> tuple[int, int]:
+    """(grid, cluster) of the MVM kernel at ``rows`` rows per warp: CTA i
+    owns rows WARPS*rows*i ... WARPS*rows*(i+1) - 1, a cluster of
+    ``cluster`` consecutive CTAs one 64-row band."""
+    cluster = WARPS // rows
+    return m_pad // BLOCK * cluster, cluster
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
 
 def check_operands(bits_a, bits_x, a_codes, a_scales, x_codes, x_scales,
                    pad: int = 128, batch: tuple = ()):
@@ -134,7 +167,8 @@ def _mvm_cuda(bits_a, bits_x, a_codes, a_scales, x_codes, x_scales,
     _build.launch("clover_mvm", device, P(a_codes), P(a_scales), P(x_codes),
                   P(x_scales), P(u_codes), P(u_scales), float(alpha), P(out),
                   P(out_scales), m_pad, n_pad, bits_a, bits_x, int(noise1),
-                  seed1 & 0xFFFFFFFF, int(noise2), seed2 & 0xFFFFFFFF)
+                  seed1 & 0xFFFFFFFF, int(noise2), seed2 & 0xFFFFFFFF,
+                  rows_per_warp(m_pad, _sm_count(device.index)))
     return out, out_scales
 
 
@@ -194,7 +228,7 @@ def mvm_f32_cuda(bits_a: int, bits_x: int, a_codes, a_scales, x_codes,
     P = _build.ptr
     _build.launch("clover_mvm_f32", device, P(a_codes), P(a_scales),
                   P(x_codes), P(x_scales), P(out), m_pad, n_pad, bits_a,
-                  bits_x)
+                  bits_x, rows_per_warp(m_pad, _sm_count(device.index)))
     mvm_f32_cuda.launches += 1
     return out
 

@@ -2,10 +2,13 @@
 never on a solver's path.
 
 Replaces clover_tpu/kernels/probes.py.  ``dma_probe`` streams a packed 4-
-or 8-bit matrix through the fused MVM's own CTA layout (csrc/mvm.cu), so
-its time is the same-geometry streaming floor that ``-p`` reports beside
-the MVM: the MVM's rate as a share of this probe's, measured in the same
-run.  ``salted_probe`` is the same stream with a small f32 salt input:
+or 8-bit matrix through one CTA per 64-row band of 8 warps x 8 rows, the
+layout of csrc/mvm.cuh mvm_band (the whole-iteration kernels' and the
+reference's), so its time is that geometry's streaming floor, which ``-p``
+reports beside the MVM: the MVM's rate as a share of this probe's,
+measured in the same run.  csrc/mvm.cu splits a band over a cluster of
+CTAs and keeps more loads in flight, so its share can pass 100%: that is
+no error.  ``salted_probe`` is the same stream with a small f32 salt input:
 ``dma_probe_stream`` runs it over a matrix stacked to at least 512 MB, so
 that it streams from device memory and not from the 50 MB L2 (the part the
 TPU's VMEM played for the reference), and ``launch_probe`` runs it over one

@@ -3,15 +3,26 @@ clover_tpu_torch on one card.
 
     python3 kernel_ab.py OTHER_TREE
     python3 kernel_ab.py --sass OTHER_TREE
+    python3 kernel_ab.py --rows
 
 Runs OTHER_TREE (A) and this tree (B) in turns -- A, B, B, A -- each in a
 fresh process that builds its own tree's kernels and times both legs of
-the 8192x16384 IHT for mvm4 (4x4) and mvm8 (4x8, 8x8), and the
-whole-iteration and chained (4 iterations) kernels of the 4096x8192 4x4
-IHT, SR on, as chip_smoke.py's phase 2 does: the median of 5 windows of
-20 back-to-back launches queued behind a spin kernel.  Prints the card,
-one JSON line per run and, last, each kernel's mean time in A and B with
-B's change.
+the 8192x16384 IHT for mvm4 (4x4) and mvm8 (4x8, 8x8), both legs of the
+2048x524288 4-bit IHT (chip_smoke.py's phase 10), the f32-output MVM on a
+4096x4096 block (a 2x4 shard of the 8192x16384 matrix, through a ring of
+copies past the 50 MB L2), and the whole-iteration and chained (4
+iterations) kernels of the 4096x8192 4x4 IHT, SR on, as chip_smoke.py's
+phase 2 does: the median of 5 windows of 20 back-to-back launches queued
+behind a spin kernel.  It also times the host's side of one mvm4_cuda
+call on a 128x256 problem ("mvm4 host-call": the median of 5 windows of
+1000 calls enqueued back to back, where the device's 0.003 ms per call
+hides behind the host's).  Prints the card, one JSON line per run and, last, each
+kernel's mean time in A and B with B's change, and A's own spread.
+
+With ``--rows`` it times this tree alone: every MVM leg above at each
+rows-per-warp geometry of csrc/mvm.cu (kernels/mvm.py ROWS_PER_WARP),
+each output held bit for bit to the plain version first, and marks the
+geometry kernels/mvm.py rows_per_warp picks.
 
 With ``--sass`` it times nothing: it builds both trees' libraries and
 compares the machine code (``cuobjdump -sass``) of every kernel, printing
@@ -21,19 +32,26 @@ in one tree only.
 
 from __future__ import annotations
 
+import functools
 import hashlib
+import itertools
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 M, N = 8192, 16384
 MU = 0.0002138596817016602      # the tuned 4-bit mu at this size
 SMALL = (4096, 8192)            # the small path's iteration kernels
 SMALL_MU = 0.0005050158681869508
+LARGE = (2048, 524288)          # the large-n IHT (chip_smoke.py phase 10)
+SHARD = (4096, 4096)            # a 2x4 mesh's block of the M x N matrix
+RING_BYTES = 512 << 20          # copies of the shard pass the 50 MB L2
+HOST_CALLS = 1000
 SPIN_CYCLES = 1 << 23
 
 
@@ -54,8 +72,81 @@ def median_ms(fn, reps: int = 5, inner: int = 20) -> float:
     return sorted(times)[reps // 2]
 
 
-def child(tree: str) -> None:
-    """Time the legs with the package of ``tree``; print one JSON line."""
+def legs(tt, kn, torch) -> dict:
+    """Leg name -> (one MVM launch at the shapes of the module note, SR on;
+    its plain version on the same operands; A's rows), the operands made
+    once, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    phi = torch.rand(M, N, generator=gen, device="cuda") * 2 - 1
+    y = torch.rand(M, generator=gen, device="cuda") * 2 - 1
+    xf = torch.randn(N, generator=gen, device="cuda")
+    out = {}
+
+    def add(name, cuda, plain, leg):
+        out[name] = (functools.partial(cuda, *leg),
+                     functools.partial(plain, *leg), leg[0].shape[0])
+
+    for bits_a, bits_x in ((4, 4), (4, 8), (8, 8)):
+        a = tt.quantize(phi, bits_a)
+        at = tt.transpose(a)
+        qy, qx = tt.quantize(y, bits_x), tt.quantize(xf, bits_x)
+        cuda, plain = ((kn.mvm4_cuda, kn.mvm4_plain) if bits_x == 4 else
+                       (functools.partial(kn.mvm8_cuda, bits_a),
+                        functools.partial(kn.mvm8_plain, bits_a)))
+        leg1 = (a.codes, a.scales, qx.codes, qx.scales, qy.codes, qy.scales,
+                -1.0, 1, True, 2, True)
+        leg2 = (at.codes, at.scales, *cuda(*leg1), qx.codes, qx.scales, MU,
+                1, True, 2, True)
+        mode = f"mvm{bits_x} {bits_a}x{bits_x}"
+        add(f"{mode} Phi", cuda, plain, leg1)
+        add(f"{mode} PhiT", cuda, plain, leg2)
+    rows, cols = SHARD
+    q = tt.quantize(phi[:rows, :cols].contiguous(), 4)
+    qx = tt.quantize(xf[:cols].contiguous(), 4)
+    one = (q.codes, q.scales, qx.codes, qx.scales)
+    ring = [[t.clone() for t in one]
+            for _ in range(-(-RING_BYTES // sum(t.nbytes for t in one)))]
+    turn = itertools.count()
+    out["mvm_f32 4x4 shard"] = (
+        lambda: kn.mvm_f32_cuda(4, 4, *ring[next(turn) % len(ring)]),
+        functools.partial(kn.mvm_f32_plain, 4, 4, *one), rows)
+    del phi
+    m, n = LARGE
+    big = torch.rand(m, n, generator=gen, device="cuda") * 2 - 1
+    a = tt.quantize(big, 4)
+    del big
+    at = tt.transpose(a)
+    qy = tt.quantize(torch.rand(m, generator=gen, device="cuda") * 2 - 1, 4)
+    qx = tt.quantize(torch.randn(n, generator=gen, device="cuda"), 4)
+    leg1 = (a.codes, a.scales, qx.codes, qx.scales, qy.codes, qy.scales,
+            -1.0, 1, True, 2, True)
+    leg2 = (at.codes, at.scales, *kn.mvm4_cuda(*leg1), qx.codes, qx.scales,
+            1.0 / m, 1, True, 2, True)
+    add("mvm4 4x4 large Phi", kn.mvm4_cuda, kn.mvm4_plain, leg1)
+    add("mvm4 4x4 large PhiT", kn.mvm4_cuda, kn.mvm4_plain, leg2)
+    return out
+
+
+def host_call_ms(tt, kn, torch, reps: int = 5) -> float:
+    """Host time of one mvm4_cuda call on a 128x256 problem (ms): the
+    median over ``reps`` windows of the mean of HOST_CALLS calls enqueued
+    back to back, each window ending in a synchronize."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    a = tt.quantize(torch.rand(128, 256, generator=gen, device="cuda"), 4)
+    x = tt.quantize(torch.rand(256, generator=gen, device="cuda"), 4)
+    args = (a.codes, a.scales, x.codes, x.scales)
+    times = []
+    for _ in range(reps + 1):                 # the first window warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            kn.mvm4_cuda(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / HOST_CALLS * 1e3)
+    return sorted(times[1:])[reps // 2]
+
+
+def load_tree(tree: str):
     sys.path[0] = tree
     import torch
     import clover_tpu_torch as tt
@@ -63,35 +154,58 @@ def child(tree: str) -> None:
     if not Path(tt.__file__).resolve().is_relative_to(Path(tree).resolve()):
         raise RuntimeError(f"imported {tt.__file__}, not {tree}")
     kn._build.library()
+    return tt, kn, torch
+
+
+def child(tree: str) -> None:
+    """Time the legs with the package of ``tree``; print one JSON line."""
+    tt, kn, torch = load_tree(tree)
+    out = {name: median_ms(call)
+           for name, (call, _, _) in legs(tt, kn, torch).items()}
+    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    phi = torch.rand(M, N, generator=gen, device="cuda") * 2 - 1
-    y = torch.rand(M, generator=gen, device="cuda") * 2 - 1
-    xf = torch.randn(N, generator=gen, device="cuda")
-    out = {}
-    for bits_a, bits_x in ((4, 4), (4, 8), (8, 8)):
-        a = tt.quantize(phi, bits_a)
-        at = tt.transpose(a)
-        qy, qx = tt.quantize(y, bits_x), tt.quantize(xf, bits_x)
-        mvm = (kn.mvm4_cuda if bits_x == 4 else
-               (lambda *args, b=bits_a: kn.mvm8_cuda(b, *args)))
-        leg1 = (a.codes, a.scales, qx.codes, qx.scales, qy.codes, qy.scales,
-                -1.0, 1, True, 2, True)
-        t2 = mvm(*leg1)
-        leg2 = (at.codes, at.scales, *t2, qx.codes, qx.scales, MU, 1, True, 2,
-                True)
-        mode = f"mvm{bits_x} {bits_a}x{bits_x}"
-        out[f"{mode} Phi"] = median_ms(lambda: mvm(*leg1))
-        out[f"{mode} PhiT"] = median_ms(lambda: mvm(*leg2))
     m, n = SMALL
-    q = tt.quantize(phi[:m, :n].contiguous(), 4)
+    q = tt.quantize(torch.rand(m, n, generator=gen, device="cuda") * 2 - 1, 4)
     ops = [(v.codes, v.scales) for v in (
-        q, tt.transpose(q), tt.quantize(y[:m].contiguous(), 4),
-        tt.quantize(xf[:n].contiguous(), 4))]
+        q, tt.transpose(q),
+        tt.quantize(torch.rand(m, generator=gen, device="cuda") * 2 - 1, 4),
+        tt.quantize(torch.randn(n, generator=gen, device="cuda"), 4))]
     out["iteration 4x4"] = median_ms(lambda: kn.iteration_cuda(
         4, 4, *ops, SMALL_MU, [1, 2, 3, 4], (True,) * 4))
     out["iteration_chain 4x4"] = median_ms(lambda: kn.iteration_chain_cuda(
         4, 4, *ops, SMALL_MU, n // 4, list(range(16)), (True,) * 4))
+    out["mvm4 host-call"] = host_call_ms(tt, kn, torch)
     print(json.dumps({"tree": tree, "ms": out}), flush=True)
+
+
+def sweep_rows() -> None:
+    """This tree's MVM legs at every rows-per-warp geometry, each output
+    first held bit for bit to its plain version."""
+    here = str(Path(__file__).resolve().parent)
+    tt, kn, torch = load_tree(here)
+    from clover_tpu_torch.kernels import mvm as kmvm
+    chosen = kmvm.rows_per_warp
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (call, plain, m_pad) in legs(tt, kn, torch).items():
+        want, times = plain(), {}
+        for rows in kmvm.ROWS_PER_WARP:
+            kmvm.rows_per_warp = lambda m_pad, sms, rows=rows: rows
+            try:
+                got = call()
+                pairs = zip(got, want) if isinstance(got, tuple) else \
+                    [(got.view(torch.int32), want.view(torch.int32))]
+                if not all(torch.equal(g, w) for g, w in pairs):
+                    raise AssertionError(f"{name} rows={rows}: kernel != "
+                                         f"plain")
+                times[rows] = median_ms(call)
+            finally:
+                kmvm.rows_per_warp = chosen
+        del want
+        pick = chosen(m_pad, sms)
+        print(f"{name:22s} " + "  ".join(
+            f"R={r} {ms:.4f}{'*' if r == pick else ' '}"
+            for r, ms in times.items()) + " ms (* the rule's), bit-identical",
+            flush=True)
 
 
 LIBRARY_OF = """
@@ -187,6 +301,12 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--child":
         child(sys.argv[2])
         return 0
+    if sys.argv[1:] == ["--rows"]:
+        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True, timeout=60).stdout.strip())
+        sweep_rows()
+        return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--sass":
         here = str(Path(__file__).resolve().parent)
         compare_sass({"A": str(Path(sys.argv[2]).resolve()), "B": here})
@@ -210,8 +330,9 @@ def main() -> int:
     for leg in runs["A"][0]:
         a = sum(r[leg] for r in runs["A"]) / 2
         b = sum(r[leg] for r in runs["B"]) / 2
-        print(f"{leg:20s} A {a:.4f} ms  B {b:.4f} ms  B/A - 1 = "
-              f"{100 * (b / a - 1):+.2f}%")
+        spread = abs(runs["A"][0][leg] - runs["A"][1][leg])
+        print(f"{leg:22s} A {a:.4f} ms  B {b:.4f} ms  B/A - 1 = "
+              f"{100 * (b / a - 1):+.2f}%  (A's runs {spread:.4f} ms apart)")
     return 0
 
 

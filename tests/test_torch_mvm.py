@@ -18,7 +18,8 @@ from clover_tpu.kernels.mvm import (mvm_axpy_pallas, mvm_pallas,
                                     mvm_pallas_eligible)
 from clover_tpu_torch.kernels import mvm4_plain, mvm8_plain
 from clover_tpu_torch.kernels.mvm import blocked_products, blocked_sum, groups
-from torch_helpers import assert_same, assert_within_lsb, to_jax, to_torch
+from torch_helpers import (assert_same, assert_within_lsb, to_jax, to_torch,
+                           warp_order_sums)
 
 SIZES = [(128, 128), (200, 300), (256, 384), (512, 1024), (192, 2048)]
 
@@ -244,3 +245,114 @@ def test_mvm8_plain_sums_in_the_kernel_lane_order(rng, bits_a):
     codes, scales = mvm8_plain(bits_a, A.codes, A.scales, x.codes, x.scales)
     want = tt.quantize(torch.from_numpy(y), 8)
     assert torch.equal(codes, want.codes) and torch.equal(scales, want.scales)
+
+
+# Shapes csrc/mvm.cu's launch geometry makes edge cases (rows, cols): two
+# bands with rows of 16512 columns (>= 16 chunks per lane group, a partial
+# last chunk), and 10 bands (a count no cluster of 4 or 8 CTAs divides)
+# with a partial chunk.
+EDGES = [(128, 16512), (640, 1152)]
+
+
+@pytest.mark.parametrize("bits_a,bits_x", [(4, 4), (4, 8), (8, 8)])
+@pytest.mark.parametrize("m,n", EDGES)
+def test_mvm_edge_shapes(rng, bits_a, bits_x, m, n):
+    """At the geometry's edge shapes: the MVM and the fused MVM+AXPY within
+    1 LSB of clover_tpu, and the row sums bit for bit the kernel's warp
+    order (blocked_sum against an emulation of it)."""
+    jA, jx, ju = _problem(rng, m, n, bits_a, bits_x,
+                          4 if bits_a == bits_x == 4 else 8)
+    A, x, u = to_torch(jA), to_torch(jx), to_torch(ju)
+    assert_within_lsb(tt.mvm(A, x), ct.mvm(jA, jx))
+    t1 = tt.mvm(A, x)
+    assert_within_lsb(tt.mvm_axpy(A, x, u, -0.61),
+                      ct.scale_and_add(ju, to_jax(t1), -0.61))
+    prods = blocked_products(A.codes, A.scales, x.codes, x.scales, bits_a,
+                             bits_x)
+    G = groups(bits_a)
+    assert prods.shape[1] % G != 0            # a partial last chunk
+    np.testing.assert_array_equal(
+        blocked_sum(prods, G).numpy().view(np.uint32),
+        warp_order_sums(prods, G).view(np.uint32))
+
+
+def test_launch_geometry_covers_every_row_once():
+    """Every geometry the kernel launches covers each row of A exactly once
+    and its cluster divides the grid, for m_pad from 64 to 524288; the
+    rule picks one of them, with a CTA for every SM where it can."""
+    from clover_tpu_torch.kernels import mvm as kmvm
+    sampled = {*range(64, 8193, 64), *(64 * 5 ** k for k in range(6)),
+               *(1 << k for k in range(6, 20))}
+    for m_pad in range(64, 524289, 64):
+        for rows in kmvm.ROWS_PER_WARP:
+            grid, cluster = kmvm.launch_geometry(m_pad, rows)
+            per_cta = kmvm.WARPS * rows
+            assert grid % cluster == 0 and cluster * per_cta == 64
+            assert grid * per_cta == m_pad
+            if m_pad in sampled:
+                cta, warp, r = np.meshgrid(np.arange(grid),
+                                           np.arange(kmvm.WARPS),
+                                           np.arange(rows), indexing="ij")
+                owned = (cta * per_cta + warp * rows + r).ravel()
+                assert np.array_equal(np.sort(owned), np.arange(m_pad))
+                band = owned // 64
+                assert np.array_equal(band, (cta // cluster).ravel())
+        for sms in (1, 132):
+            rows = kmvm.rows_per_warp(m_pad, sms)
+            assert rows in kmvm.ROWS_PER_WARP
+            grid, _ = kmvm.launch_geometry(m_pad, rows)
+            assert rows == kmvm.ROWS_PER_WARP[-1] or grid >= sms
+    # on the H100 (132 SMs): the geometries kernel_ab.py --rows timed fastest
+    assert [kmvm.rows_per_warp(m, 132) for m in
+            (2048, 4096, 8192, 16384, 524288)] == [2, 2, 4, 8, 8]
+
+
+def _bytes_of(words: np.ndarray) -> np.ndarray:
+    """uint32 words -> their 4 bytes each, as int8 (little-endian)."""
+    return words.astype("<u4").view(np.int8).reshape(*words.shape, 4)
+
+
+def _unpack_word(w):
+    """mvm.cuh unpack_word: (low codes, high codes) as int8 bytes."""
+    lo = ((w & 0x0F0F0F0F).astype("<u4").view(np.uint8).astype(np.int16)
+          - 8).astype(np.int8).view(np.uint32)
+    u = (((w >> 4) & 0x0F0F0F0F) ^ 0x08080808).astype("<u4")
+    hi = (u.view(np.uint8).astype(np.int16) - 8).astype(np.int8)
+    return _bytes_of(lo), hi.reshape(*w.shape, 4)
+
+
+def _dp4a(a_bytes, b_bytes, c, a_unsigned=False):
+    a = a_bytes.view(np.uint8) if a_unsigned else a_bytes
+    return c + (a.astype(np.int64) * b_bytes.astype(np.int64)).sum(-1)
+
+
+@pytest.mark.parametrize("bits_x", [4, 8])
+def test_kernel_block_dot_without_unpacking(rng, bits_x):
+    """csrc/mvm.cu's lane dot for 4-bit A -- dp4a.u32.s32 of the masked low
+    nibbles, minus 8 times the sum of x, plus a dp4a of the masked high
+    nibbles shifted by 4 -- and its x unpacking (low_codes, high_codes)
+    give the integers of mvm.cuh's unpack_word path, over every byte pair
+    and random words (NumPy on uint32 words, as the kernel computes)."""
+    pairs = np.arange(1 << 16, dtype=np.uint32)
+    a = rng.integers(0, 1 << 32, (1 << 16, 4), dtype=np.uint32)
+    x = rng.integers(0, 1 << 32, (1 << 16, 4), dtype=np.uint32)
+    xb = rng.integers(0, 1 << 32, (1 << 16, 4), dtype=np.uint32)
+    a[:, 0] = (a[:, 0] & 0xFFFFFF00) | (pairs & 0xFF)
+    x[:, 0] = (x[:, 0] & 0xFFFFFF00) | (pairs >> 8)
+    low = (((x & 0x0F0F0F0F) + 0x78787878) ^ 0x80808080).astype(np.uint32)
+    high = (((((x >> 4) & 0x0F0F0F0F) ^ 0x08080808) + 0x78787878)
+            ^ 0x80808080).astype(np.uint32)
+    ref_lo, ref_hi = _unpack_word(x)
+    if bits_x == 4:
+        np.testing.assert_array_equal(_bytes_of(low), ref_lo)
+        np.testing.assert_array_equal(_bytes_of(high), ref_hi)
+        xl, xh = _bytes_of(low), _bytes_of(high)
+    else:
+        xl, xh = _bytes_of(x), _bytes_of(xb)
+    al, ah = _unpack_word(a)
+    want = _dp4a(al, xl, 0).sum(-1) + _dp4a(ah, xh, 0).sum(-1)
+    bias = _dp4a(xl, np.full(4, -8, np.int8), 0).sum(-1)
+    lo = bias + _dp4a(_bytes_of(a & 0x0F0F0F0F), xl, 0, True).sum(-1)
+    hi = _dp4a(_bytes_of(a & 0xF0F0F0F0), xh, 0).sum(-1)
+    assert (hi % 16 == 0).all()
+    np.testing.assert_array_equal(lo + (hi >> 4), want)

@@ -27,7 +27,7 @@ from clover_tpu_torch.kernels import (
 from clover_tpu_torch.kernels.mvm import blocked_products
 from clover_tpu_torch.ops.gemm import mvm_batched_f32_fast
 from clover_tpu_torch.ops.mvm import mvm_f32_fast
-from torch_helpers import to_jax, to_torch
+from torch_helpers import to_jax, to_torch, warp_order_sums
 from torch_parallel_worker import int_matrix, int_vector
 
 MODES = [(4, 4), (4, 8), (8, 8)]
@@ -150,3 +150,53 @@ def test_f32_kernels_take_64_block_sides():
                      torch.ones(1, 3), x, xs)
     with pytest.raises(ValueError, match="modes"):
         mvm_f32_cuda(8, 4, a, s, x, xs)
+
+
+# The f32 mode's edge shapes for csrc/mvm.cu's geometry (rows, cols), sides
+# multiples of 64 as a shard's: one band with a partial last chunk (576
+# columns: 9 blocks), and 5 bands with rows of 16448 columns (>= 16 chunks
+# per lane group, a partial chunk).
+F32_EDGES = [(64, 576), (320, 16448)]
+
+
+def _cut(q, rows: int, cols: int):
+    """(codes, scales) of a 4/8-bit container cut to rows x cols (a block
+    whose sides are multiples of 64, as chip_smoke.py f32_operands)."""
+    if q.codes.dim() == 2:
+        return (q.codes[:rows, :cols * q.bits // 8].contiguous(),
+                q.scales[:rows // 64, :cols // 64].contiguous())
+    return (q.codes[:cols * q.bits // 8].contiguous(),
+            q.scales[:cols // 64].contiguous())
+
+
+@pytest.mark.parametrize("bits_a,bits_x", MODES)
+@pytest.mark.parametrize("m,n", F32_EDGES)
+def test_mvm_f32_edge_shapes(rng, bits_a, bits_x, m, n):
+    """On the cut block, the plain f32 mode equals clover_tpu's ops.mvm_f32
+    of the padded operands bit for bit on the integer problem and within
+    RTOL_TERMS on random data, and its row sums are bit for bit a scalar
+    emulation of the kernel's warp order."""
+    from clover_tpu_torch.kernels.mvm import blocked_sum, groups
+    for make, exact in ((_integer, True), (_random, False)):
+        jA, (jx,) = make(rng, m, n, bits_a, bits_x)
+        A, x = to_torch(jA), to_torch(jx)
+        ac, asc = _cut(A, m, n)
+        xc, xsc = _cut(x, m, n)
+        got = mvm_f32_plain(bits_a, bits_x, ac, asc, xc, xsc)
+        assert got.shape == (m,)
+        want = np.asarray(jax_mvm_f32(jA, jx))[:m]
+        if exact:
+            np.testing.assert_array_equal(got.numpy(), want)
+        else:
+            gap = np.abs(got.numpy() - want)
+            terms = blocked_products(ac, asc, xc, xsc, bits_a, bits_x)
+            assert (gap <= RTOL_TERMS * terms.abs().sum(1).numpy()).all()
+        prods = blocked_products(ac, asc, xc, xsc, bits_a, bits_x)
+        G = groups(bits_a)
+        assert prods.shape == (m, n // 64) and prods.shape[1] % G != 0
+        np.testing.assert_array_equal(
+            got.numpy().view(np.uint32),
+            warp_order_sums(prods, G).view(np.uint32))
+        np.testing.assert_array_equal(
+            blocked_sum(prods, G).numpy().view(np.uint32),
+            got.numpy().view(np.uint32))

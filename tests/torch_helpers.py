@@ -36,6 +36,24 @@ def element_codes(q) -> np.ndarray:
     return codes.astype(np.int32)
 
 
+def warp_order_sums(prods: torch.Tensor, G: int) -> np.ndarray:
+    """Row sums of (rows, blocks) f32 products as a warp of the MVM kernel
+    (csrc/mvm.cu) adds them, vectorized over rows: group g adds blocks g,
+    g+G, ... from 0, then the groups reduce by xor-shuffles (g, g^G/2),
+    ..., (g, g^1)."""
+    t = prods.numpy()
+    acc = [np.zeros(t.shape[0], np.float32) for _ in range(G)]
+    for c in range(-(-t.shape[1] // G)):
+        for g in range(G):
+            if G * c + g < t.shape[1]:
+                acc[g] = acc[g] + t[:, G * c + g]
+    off = G // 2
+    while off:
+        acc = [acc[g] + acc[g ^ off] for g in range(G)]
+        off //= 2
+    return acc[0]
+
+
 def assert_same(got, want):
     """Byte-identical leaves and equal meta (both packages accepted)."""
     kg, cg, sg, mg = to_numpy(got)
