@@ -59,8 +59,10 @@ Phases, each of which raises on failure:
    the standalone AXPY
    bit-identical (single and stacked), and mvm -> scale_and_add equal to
    the fused mvm_axpy; the batched MVM bit-identical to per-vector plain
-   MVMs with seeds seed + j (16384x16384 at B = 2, 3, 8, 32; 8192x16384
-   at B = 8; 200x300 at B = 3); the batched threshold bit-identical to
+   MVMs with seeds seed + j (16384x16384 at B = 2, 3, 8, 32 and at the
+   partial n-tiles B = 1, 5, 9, 31; 8192x16384 at B = 8; 200x300 at B =
+   3; 128x16512 and 640x1152, a partial chunk and 10 bands, at B = 1, 5,
+   9, 31, 32); the batched threshold bit-identical to
    per-row plain ones; the whole-iteration and chained kernels (4x4,
    4x8; 4096x8192, 2048x4096, 512x1024; chains of 4 with k = n/4 and
    GD) bit-identical to their plain versions and to the unfused kernel
@@ -77,8 +79,9 @@ Phases, each of which raises on failure:
    and 8-bit 8192x16384, 200x300 and the 512 MB stack), with
    dma_probe_stream's p and bytes; the f32-output modes bit-identical
    (mvm_f32 4x4, 4x8, 8x8 at 8192x16384, on a 4096x4096 shard's block and
-   on 64-multiple ragged blocks; mvm_batched_f32 at B = 2, 8, 32 on
-   16384x16384, B = 8 at 8192x16384, B = 3 on a ragged block); the TF32
+   on 64-multiple ragged blocks; mvm_batched_f32 at B = 2, 8, 32 and 1,
+   5, 9, 31 on 16384x16384, B = 8 at 8192x16384, B = 3 on a ragged block,
+   B = 1, 5, 9, 31, 32 at 128x16512 and 640x1152); the TF32
    pin: with TF32 requested, the
    16/32-bit tt.mvm, mvm_f32, mvm_sparse and gemm_f32 bit-identical to
    their TF32-off results and the caller's settings restored; device
@@ -180,7 +183,10 @@ M, N, K = 8192, 16384, 4096
 NS = 16384                    # the served matrices' side
 BATCH = 8                     # problems of the batched IHT
 BATCH_SIZES = (2, 3, 8, 32)   # batched-MVM checks at NS x NS
-SWEEP = (1, 2, 4, 8, 16, 32)  # batched-MVM timing
+# partial n-tiles of csrc/mvm_batched.cu (8 vectors a tile), checked at
+# NS x NS and, with B = 32, at the MVM_EDGES shapes
+PARTIAL_BATCHES = (1, 5, 9, 31)
+SWEEP = (1, 2, 4, 8, 16, 24, 32)  # batched-MVM timing
 MODES = ((4, 4), (4, 8), (8, 8))
 CLIENTS = 4
 WAIT_S = 60.0                 # bound on every wait for a future or thread
@@ -609,7 +615,12 @@ def check_mvm_f32(rep: Report, qphi, mats, gen):
             rep.exact("mvm_f32", f"{mode} {shape}", mvm_f32_cuda(
                 bits_a, bits_x, *ops), mvm_f32_plain(bits_a, bits_x, *ops))
         bcases = [(f"{NS}x{NS} B={b}", mats[bits_a], xf[:b], None)
-                  for b in F32_BATCHES]
+                  for b in F32_BATCHES + PARTIAL_BATCHES]
+        for m, n in MVM_EDGES:
+            edge = torch.rand(m, n, generator=gen, device=dev) * 2 - 1
+            xe = torch.rand(32, n, generator=gen, device=dev) * 2 - 1
+            bcases += [(f"{m}x{n} B={b}", edge, xe[:b], None)
+                       for b in PARTIAL_BATCHES + (32,)]
         bcases += [(f"{M}x{N} B={BATCH}", qphi[bits_a], xf[:BATCH, :N], None),
                    ("192x320 block B=3", ragged, xf[:3, :320], (192, 320))]
         bcases += [(f"{SERVER_SHARD[0]}x{SERVER_SHARD[1]} server shard B={b}",
@@ -814,9 +825,15 @@ def check_mvm_batched(rep: Report, gen, qphi, mats, modes):
         mode, bits_out = f"{bits_a}x{bits_x}", 4 if bits_x == 4 else 8
         x = xs[bits_x]
         cases = [(f"{NS}x{NS} B={b}", mats[bits_a], x.codes[:b],
-                  x.scales[:b]) for b in BATCH_SIZES]
+                  x.scales[:b]) for b in BATCH_SIZES + PARTIAL_BATCHES]
         cases.append((f"{M}x{N} B={BATCH}", qphi[bits_a], x.codes[:BATCH],
                       x.scales[:BATCH]))
+        for m, n in MVM_EDGES:
+            qa = tt.quantize(torch.rand(m, n, generator=gen, device=dev) * 2
+                             - 1, bits_a)
+            xe = stacked_requests(gen, 32, n, bits_x)
+            cases += [(f"{m}x{n} B={b}", qa, xe.codes[:b], xe.scales[:b])
+                      for b in PARTIAL_BATCHES + (32,)]
         for what, seed, noise in modes:
             qa = tt.quantize(ragged, bits_a, generator=seed if noise else None)
             xr = tt.stack_vectors([tt.quantize(ragged[j], bits_x)

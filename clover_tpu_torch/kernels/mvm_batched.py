@@ -8,8 +8,11 @@ matrix A.  Vector j's output is the single MVM's
 :func:`~clover_tpu_torch.kernels.mvm.mvm8_plain`) with ``seed1 = seed + j``
 (int32 wrap-around), the seed rule of clover_tpu's vmapped path
 (clover_tpu/ops/gemm.py); the plain version is exactly those B calls, and
-the kernel agrees with it bit for bit, deterministic and SR.  Output codes
-are ``(B, m_pad * bo / 8)`` int8 and scales ``(B, m_pad / 64)`` f32.
+the kernel agrees with it bit for bit, deterministic and SR: its exact
+integer block dots run on the int8 tensor cores, its f32 sums in the
+single kernel's order (the source note of csrc/mvm_batched.cu).  Output
+codes are ``(B, m_pad * bo / 8)`` int8 and scales ``(B, m_pad / 64)``
+f32.
 
 The f32-output mode (:func:`mvm_batched_f32_cuda`, replacing
 mvm_batched_pallas_f32) returns f32[B, m_pad], each row the single f32

@@ -4,6 +4,7 @@ clover_tpu_torch on one card.
     python3 kernel_ab.py OTHER_TREE
     python3 kernel_ab.py --sass OTHER_TREE
     python3 kernel_ab.py --rows
+    python3 kernel_ab.py --e2e OTHER_TREE
 
 Runs OTHER_TREE (A) and this tree (B) in turns -- A, B, B, A -- each in a
 fresh process that builds its own tree's kernels and times both legs of
@@ -11,23 +12,39 @@ the 8192x16384 IHT for mvm4 (4x4) and mvm8 (4x8, 8x8), both legs of the
 2048x524288 4-bit IHT (chip_smoke.py's phase 10), the f32-output MVM on a
 4096x4096 block (a 2x4 shard of the 8192x16384 matrix, through a ring of
 copies past the 50 MB L2), and the whole-iteration and chained (4
-iterations) kernels of the 4096x8192 4x4 IHT, SR on, as chip_smoke.py's
-phase 2 does: the median of 5 windows of 20 back-to-back launches queued
-behind a spin kernel.  It also times the host's side of one mvm4_cuda
-call on a 128x256 problem ("mvm4 host-call": the median of 5 windows of
-1000 calls enqueued back to back, where the device's 0.003 ms per call
-hides behind the host's).  Prints the card, one JSON line per run and, last, each
-kernel's mean time in A and B with B's change, and A's own spread.
+iterations) kernels of the 4096x8192 4x4 IHT, SR on, and the batched MVM
+(csrc/mvm_batched.cu: 4x4, 4x8 and 8x8 at 8192x16384 with B = 8, 4x4 at
+16384x16384 with B = 2, 8 and 32, SR on; the f32-output mode, 4x4 at
+8192x16384 with B = 8), each batched leg first held bit for bit to its
+plain version, as chip_smoke.py's phase 2 does: the median of 5 windows
+of 20 back-to-back launches queued behind a spin kernel.  It also times
+the host's side of one mvm4_cuda call on a 128x256 problem ("mvm4
+host-call": the median of 5 windows of 1000 calls enqueued back to back,
+where the device's 0.003 ms per call hides behind the host's).  Prints
+the card, one JSON line per run and, last, each kernel's mean time in A
+and B with B's change, and A's own spread.
 
 With ``--rows`` it times this tree alone: every MVM leg above at each
 rows-per-warp geometry of csrc/mvm.cu (kernels/mvm.py ROWS_PER_WARP),
 each output held bit for bit to the plain version first, and marks the
 geometry kernels/mvm.py rows_per_warp picks.
 
+With ``--e2e`` it runs each tree's own chip_smoke.py phases on the
+batching path, each run a fresh process: E2E_ROUNDS rounds of A, B, B, A
+runs of phase 5 (the batched IHT, and its device time per batched
+iteration by torch.profiler) and phase 6 (the MVMServer), then phase 14
+(the sharded path on 8 ranks sharing the card) once in each tree, and
+prints each tree's median problem-iterations/s and requests/s over its
+runs.  Those paths are host-bound where their kernels are fast, and one
+run of them spreads by tens of percent between processes; phase 5's 8
+single solves run the same kernels in both trees and show the host's
+drift.
+
 With ``--sass`` it times nothing: it builds both trees' libraries and
 compares the machine code (``cuobjdump -sass``) of every kernel, printing
 for each whether A's and B's instructions are the same, differ, or exist
-in one tree only.
+in one tree only, and for each kernel of B only its count of tensor-core
+(IMMA, IGMMA, HMMA) and IDP.4A instructions.
 """
 
 from __future__ import annotations
@@ -50,8 +67,22 @@ SMALL = (4096, 8192)            # the small path's iteration kernels
 SMALL_MU = 0.0005050158681869508
 LARGE = (2048, 524288)          # the large-n IHT (chip_smoke.py phase 10)
 SHARD = (4096, 4096)            # a 2x4 mesh's block of the M x N matrix
+BATCHED = 8                     # the batched IHT's B (chip_smoke.py phase 5)
+SERVED = (16384, (2, 8, 32))    # the served matrices' side, batch sizes
 RING_BYTES = 512 << 20          # copies of the shard pass the 50 MB L2
 HOST_CALLS = 1000
+E2E_ROUNDS = 4
+# chip_smoke.py's printed rates that --e2e collects: name -> pattern
+E2E_RATES = {
+    "phase 5 batched untraced": r"batched untraced: ([\d.]+) problem-iter",
+    "phase 5 batched traced": r"batched traced: ([\d.]+) problem-iter",
+    "phase 5 8 single solves": r"8 single solves untraced: ([\d.]+) problem",
+    "phase 6 server 4x4": r"^  4x4: .* ([\d.]+) requests/s",
+    "phase 6 server 4x8": r"^  4x8: .* ([\d.]+) requests/s",
+    "phase 6 server 8x8": r"^  8x8: .* ([\d.]+) requests/s",
+    "phase 14 sharded IHT": r"gloo: ([\d.]+) iterations/s",
+    "phase 14 sharded server 4x4": r"MVMServer 4x4 .* ([\d.]+) requests/s",
+}
 SPIN_CYCLES = 1 << 23
 
 
@@ -127,6 +158,48 @@ def legs(tt, kn, torch) -> dict:
     return out
 
 
+def batched_legs(tt, kn, torch) -> dict:
+    """Leg name -> (one batched MVM launch, SR on; its plain version on the
+    same operands), the operands made once, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def operands(m, n, bits_a, bits_x, b):
+        a = tt.quantize(torch.rand(m, n, generator=gen, device="cuda") * 2
+                        - 1, bits_a)
+        xs = tt.stack_vectors([tt.quantize(torch.randn(
+            n, generator=gen, device="cuda"), bits_x) for _ in range(b)])
+        return a.codes, a.scales, xs.codes, xs.scales
+
+    out = {}
+    for bits_a, bits_x in ((4, 4), (4, 8), (8, 8)):
+        args = (bits_a, bits_x, *operands(M, N, bits_a, bits_x, BATCHED),
+                1, True)
+        out[f"mvm_batched {bits_a}x{bits_x} B={BATCHED}"] = (
+            functools.partial(kn.mvm_batched_cuda, *args),
+            functools.partial(kn.mvm_batched_plain, *args))
+        if (bits_a, bits_x) == (4, 4):
+            f32 = args[:6]
+            out[f"mvm_batched_f32 4x4 B={BATCHED}"] = (
+                functools.partial(kn.mvm_batched_f32_cuda, *f32),
+                functools.partial(kn.mvm_batched_f32_plain, *f32))
+    side, sizes = SERVED
+    a_codes, a_scales, x_codes, x_scales = operands(side, side, 4, 4,
+                                                    max(sizes))
+    for b in sizes:
+        args = (4, 4, a_codes, a_scales, x_codes[:b], x_scales[:b], 1, True)
+        out[f"mvm_batched 4x4 {side}^2 B={b}"] = (
+            functools.partial(kn.mvm_batched_cuda, *args),
+            functools.partial(kn.mvm_batched_plain, *args))
+    return out
+
+
+def same(got, want, torch) -> bool:
+    """Kernel output equal to the plain one: (codes, scales), or f32 bits."""
+    if isinstance(got, tuple):
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+    return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 def host_call_ms(tt, kn, torch, reps: int = 5) -> float:
     """Host time of one mvm4_cuda call on a 128x256 problem (ms): the
     median over ``reps`` windows of the mean of HOST_CALLS calls enqueued
@@ -174,6 +247,11 @@ def child(tree: str) -> None:
         4, 4, *ops, SMALL_MU, [1, 2, 3, 4], (True,) * 4))
     out["iteration_chain 4x4"] = median_ms(lambda: kn.iteration_chain_cuda(
         4, 4, *ops, SMALL_MU, n // 4, list(range(16)), (True,) * 4))
+    torch.cuda.empty_cache()
+    for name, (call, plain) in batched_legs(tt, kn, torch).items():
+        if not same(call(), plain(), torch):
+            raise AssertionError(f"{tree}: {name}: kernel != plain")
+        out[name] = median_ms(call)
     out["mvm4 host-call"] = host_call_ms(tt, kn, torch)
     print(json.dumps({"tree": tree, "ms": out}), flush=True)
 
@@ -192,9 +270,7 @@ def sweep_rows() -> None:
             kmvm.rows_per_warp = lambda m_pad, sms, rows=rows: rows
             try:
                 got = call()
-                pairs = zip(got, want) if isinstance(got, tuple) else \
-                    [(got.view(torch.int32), want.view(torch.int32))]
-                if not all(torch.equal(g, w) for g, w in pairs):
+                if not same(got, want, torch):
                     raise AssertionError(f"{name} rows={rows}: kernel != "
                                          f"plain")
                 times[rows] = median_ms(call)
@@ -208,6 +284,90 @@ def sweep_rows() -> None:
             flush=True)
 
 
+def batched_device_ms(cs, phi, iters: int = 20) -> float:
+    """Device time (kernels and copies, torch.profiler) per iteration of
+    the untraced batched IHT of chip_smoke.py phase 5, on its operands."""
+    import torch
+    import clover_tpu_torch as tt
+    bits_a, bits_v, _, mu, _ = cs.config("4")
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 2)
+    stars = torch.zeros(cs.BATCH, cs.N, device="cuda")
+    for j in range(cs.BATCH):
+        stars[j, torch.randperm(cs.N, generator=g, device="cuda")[:cs.K]] = 1
+    yf = (phi @ stars.T).T.contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
+    qphi = tt.quantize(phi, bits_a, generator=gen)
+    ys = tt.stack_vectors([tt.quantize(yf[j], bits_v, generator=gen)
+                           for j in range(cs.BATCH)])
+    qphit = tt.transpose(qphi)
+    tt.iht_batched(qphi, qphit, ys, 5, cs.K, mu)
+    torch.cuda.synchronize()
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        tt.iht_batched(qphi, qphit, ys, iters, cs.K, mu)
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        us += e.self_cuda_time_total if t is None else t
+    return us / iters / 1e3
+
+
+def e2e_child(tree: str, sharded: bool) -> None:
+    """Run ``tree``'s chip_smoke.py phases 5 and 6 once (or, ``sharded``,
+    phase 14) and time the batched IHT's device work; print one JSON line
+    of the rates each phase printed."""
+    import contextlib
+    import io
+    sys.path[0] = tree
+    import torch
+    import chip_smoke as cs
+    if not Path(cs.__file__).resolve().is_relative_to(Path(tree).resolve()):
+        raise RuntimeError(f"imported {cs.__file__}, not {tree}")
+    from clover_tpu_torch.models import make_iht_problem
+    out, extra = io.StringIO(), {}
+    with contextlib.redirect_stdout(out):
+        cs.phase_build()
+        if sharded:
+            cs.phase_sharded()
+        else:
+            gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+            phi, _, _ = make_iht_problem(cs.M, cs.N, cs.K, generator=gen)
+            mats = cs.serving_matrices(gen)
+            cs.phase_batched_iht(phi)
+            cs.phase_server(mats, gen)
+            extra["phase 5 device ms per batched iteration"] = [
+                batched_device_ms(cs, phi)]
+    rates = {name: [float(v) for v in re.findall(pattern, out.getvalue(),
+                                                 re.MULTILINE)]
+             for name, pattern in E2E_RATES.items()}
+    rates = {k: v for k, v in {**rates, **extra}.items() if v}
+    print(json.dumps({"tree": tree, "rates": rates}), flush=True)
+
+
+def e2e(trees: dict) -> None:
+    """E2E_ROUNDS rounds of A, B, B, A runs of e2e_child (phases 5 and 6),
+    then phase 14 once in A and in B; each tree's median of every rate."""
+    import statistics
+    runs = {"A": {}, "B": {}}
+    order = [(label, False) for _ in range(E2E_ROUNDS) for label in "ABBA"]
+    for label, sharded in order + [("A", True), ("B", True)]:
+        argv = [sys.executable, __file__, "--e2e-child", trees[label]]
+        proc = subprocess.run(argv + ["14"] * sharded, capture_output=True,
+                              text=True, check=True, timeout=900)
+        line = proc.stdout.strip().splitlines()[-1]
+        print(label, line, flush=True)
+        for name, values in json.loads(line)["rates"].items():
+            runs[label].setdefault(name, []).extend(values)
+    for name in runs["A"]:
+        a, b = (statistics.median(runs[k][name]) for k in "AB")
+        print(f"{name:28s} A {a:.4f}  B {b:.4f}  B/A - 1 = "
+              f"{100 * (b / a - 1):+.2f}%  (A {min(runs['A'][name]):.4f}-"
+              f"{max(runs['A'][name]):.4f}, B {min(runs['B'][name]):.4f}-"
+              f"{max(runs['B'][name]):.4f}; {len(runs['A'][name])} runs "
+              f"each)")
+
+
 LIBRARY_OF = """
 import sys
 sys.path.insert(0, sys.argv[1])
@@ -219,6 +379,9 @@ assert Path(clover_tpu_torch.__file__).resolve().is_relative_to(
 print(_build.library().path)
 """
 INSTRUCTION = re.compile(r"^\s+/\*[0-9a-f]{4,}\*/")
+# instructions counted in each kernel of B only: tensor-core products and
+# the CUDA-core int8 dot
+MIX = ("IMMA", "IGMMA", "HMMA", "IDP.4A")
 
 
 def sass(tree: str) -> dict:
@@ -295,30 +458,44 @@ def compare_sass(trees: dict) -> None:
             show_diff(bodies_a[name], nearest, bodies_b[nearest])
     print(f"{sum(tally.values())} kernels: " + ", ".join(
         f"{n} {v}" for v, n in sorted(tally.items())))
+    for name in sorted(set(b) - set(a)):
+        mix = {op: sum(1 for x in bodies_b[name]
+                       if re.search(rf"\b{re.escape(op)}\b", x))
+               for op in MIX}
+        print(f"B's {name}: " + ", ".join(f"{op} {n}" for op, n in
+                                         mix.items()))
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
 
 
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--child":
         child(sys.argv[2])
         return 0
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--e2e-child":
+        e2e_child(sys.argv[2], sharded=sys.argv[3:] == ["14"])
+        return 0
     if sys.argv[1:] == ["--rows"]:
-        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True,
-                             text=True, check=True, timeout=60).stdout.strip())
+        print(card())
         sweep_rows()
         return 0
-    if len(sys.argv) == 3 and sys.argv[1] == "--sass":
+    if len(sys.argv) == 3 and sys.argv[1] in ("--sass", "--e2e"):
         here = str(Path(__file__).resolve().parent)
-        compare_sass({"A": str(Path(sys.argv[2]).resolve()), "B": here})
+        trees = {"A": str(Path(sys.argv[2]).resolve()), "B": here}
+        print(card())
+        (compare_sass if sys.argv[1] == "--sass" else e2e)(trees)
         return 0
     if len(sys.argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
     here = str(Path(__file__).resolve().parent)
     trees = {"A": str(Path(sys.argv[1]).resolve()), "B": here}
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip())
+    print(card())
     runs = {"A": [], "B": []}
     for label in "ABBA":
         proc = subprocess.run([sys.executable, __file__, "--child",
