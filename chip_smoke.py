@@ -63,10 +63,15 @@ Phases, each of which raises on failure:
    partial n-tiles B = 1, 5, 9, 31; 8192x16384 at B = 8; 200x300 at B =
    3; 128x16512 and 640x1152, a partial chunk and 10 bands, at B = 1, 5,
    9, 31, 32); the batched threshold bit-identical to
-   per-row plain ones; the whole-iteration and chained kernels (4x4,
-   4x8; 4096x8192, 2048x4096, 512x1024; chains of 4 with k = n/4 and
-   GD) bit-identical to their plain versions and to the unfused kernel
-   sequence, at grids 1, 7 and the default; the matrix restore
+   per-row plain ones; the select at its edge cases (n = 16256, 16384,
+   16512 around the resident path's limit, 2^19 with K = 300, stacked
+   B = 1 and 32, 8-bit codes at +-127, subnormal and zero s/qmax, blocks
+   whose order needs the IEEE s/qmax) bit-identical; the whole-iteration
+   and chained kernels (4x4, 4x8; 4096x8192, 2048x4096, 512x1024; chains
+   of 4 with k = n/4 and GD) bit-identical to their plain versions and to
+   the unfused kernel sequence, the whole iteration at grids 1, 7 and the
+   default, the chain also at chains of 1 and 16, at 1 and 7 clusters and
+   at 8192x8192; the matrix restore
    bit-identical (8192x16384 and 200x300, SR codes); the dot within 1e-5
    of its terms' absolute sum of the plain version, bit-identical on a
    repeated call, and within 0.02 max(1, |ref|/10) of golden.dot at
@@ -204,6 +209,21 @@ EPOCHS = 200                  # the accuracy protocol's
 INT8_OPS = 1979e12            # H100 SXM int8 tensor-core peak, ops/s
 DOT_SIZES = (16384, 1 << 24, 1000)
 DOT_RTOL = 1e-5               # of sum |t_b|: the f32 sum order differs
+# csrc/threshold.cu resident_path: the select holds n_pad <= this many
+# elements in registers; the edge checks straddle it
+SELECT_RESIDENT = 16384
+SELECT_EDGES = (SELECT_RESIDENT - 128, SELECT_RESIDENT, SELECT_RESIDENT + 128)
+# blocks (scale a, scale b, code a, code b), as f32 bit patterns, whose
+# values order one way with s / qmax divided in IEEE and tie with s * (1 /
+# qmax) (tests/test_torch_threshold.py DIVISION_ORDER)
+DIVISION_ORDER = {4: (1071573821, 1066704083, 2, 3),
+                  8: (1061287518, 1073648478, 63, 24)}
+# the chain's edge cases: (m, n, y/x bits, chain, grid in clusters): chains
+# of 1 and MAX_CHAIN, one and seven clusters, and the largest eligible
+# shape (phase C's x of 8192; the pair past the 50 MB L2)
+CHAIN_EDGES = ((4096, 8192, 4, 1, None), (2048, 4096, 8, 16, None),
+               (4096, 8192, 4, 4, 1), (4096, 8192, 8, 4, 7),
+               (8192, 8192, 4, 4, None), (8192, 8192, 8, 2, None))
 HYBRID_SIZES = (1 << 19, 1 << 20, 1 << 23)
 HYBRID_KS = (1, 64, 256)
 HYBRID_TIMED = ((1 << 20, 64), (1 << 23, 256))
@@ -694,6 +714,67 @@ def check_threshold(rep: Report, iterates, xf, gen):
                  qbytes(N, bits) + N * bits // 8)
 
 
+def check_select_edges(rep: Report, gen):
+    """The thresholds at the select's edge cases, bit-identical to the
+    plain versions: n just under, at and just over the resident path's
+    limit; n = 2^19 with K = 300 (the radix select; the hybrid takes K <=
+    256 only); stacked B = 1 and 32; 8-bit codes all at +-127; subnormal
+    and vanishing s / qmax."""
+    import torch
+    import clover_tpu_torch as tt
+    from clover_tpu_torch.kernels import (threshold4_cuda, threshold4_plain,
+                                          threshold8_cuda, threshold8_plain)
+    dev = gen.device
+    for bits, cuda, plain in (
+            (4, threshold4_cuda, threshold4_plain),
+            (8, threshold8_cuda,
+             lambda c, s, k: threshold8_plain(c, s, k, c.shape[-1]))):
+        name = f"threshold{bits}"
+
+        def exact(what, c, s, k):
+            rep.exact(name, what, flat((cuda(c, s, k), s)),
+                      flat((plain(c, s, k), s)), bits, say=False)
+
+        for n in SELECT_EDGES + (1 << 19,):
+            dense = tt.quantize(torch.randn(n, generator=gen, device=dev),
+                                bits, generator=gen)
+            storm = tt.quantize(torch.rand(n // 64, generator=gen,
+                                           device=dev).repeat_interleave(64),
+                                bits)
+            for k in ((300, 64) if n == 1 << 19 else (1, n // 4, n)):
+                for what, q in (("dense SR", dense), ("tie storm", storm)):
+                    exact(f"n={n} k={k} {what}", q.codes, q.scales, k)
+            print(f"  {name:13s} n={n}: dense SR and tie storm "
+                  f"bit-identical")
+        for b in (1, 32):
+            q = tt.stack_vectors([tt.quantize(torch.randn(
+                N, generator=gen, device=dev), bits, generator=gen)
+                for _ in range(b)])
+            for k in (K, 1):
+                exact(f"B={b} n={N} k={k} stacked", q.codes, q.scales, k)
+        q = tt.quantize(torch.randn(N, generator=gen, device=dev), bits,
+                        generator=gen)
+        cases = [("subnormal s/qmax", q.codes,
+                  torch.full_like(q.scales, 1e-40)),
+                 ("s/qmax = 0", q.codes, torch.full_like(q.scales, 1e-45))]
+        if bits == 8:
+            sign = torch.rand(N, generator=gen, device=dev) < 0.5
+            top = torch.where(sign, 127, -127).to(torch.int8)
+            cases.append(("every code +-127", top, q.scales))
+        sa, sb, ca, cb = DIVISION_ORDER[bits]
+        pair = torch.tensor([ca] * 64 + [cb] * 64, dtype=torch.int8,
+                            device=dev).repeat(N // 128)
+        scales = torch.tensor([sa, sb], dtype=torch.int32,
+                              device=dev).view(torch.float32).repeat(N // 128)
+        cases.append(("IEEE s/qmax order", tt.pack_nibbles(pair)
+                      if bits == 4 else pair, scales))
+        for what, c, s in cases:
+            for k in (K, 1, N):
+                exact(f"n={N} k={k} {what}", c, s, k)
+        print(f"  {name:13s} stacked B = 1, 32; "
+              f"{', '.join(w for w, _, _ in cases)}: bit-identical")
+
+
 def check_restore(rep: Report, y, xf, gen):
     import clover_tpu_torch as tt
     from clover_tpu_torch.kernels import restore_vec_cuda, restore_vec_plain
@@ -988,6 +1069,25 @@ def check_iteration(rep: Report, gen, modes):
                         4, 4, *ops, mu, n // 4, list(range(4 * CHAIN)),
                         (True,) * 4),
                     pair + vecs, ops=4 * m * n * CHAIN)
+    for m, n, bits_x, chain, clusters in CHAIN_EDGES:
+        ops = small_problem(gen, m, n, bits_x)
+        grid = None if clusters is None else clusters * it.CHAIN_CLUSTER
+        mode = f"4x{bits_x} {m}x{n} chain={chain} grid={grid}"
+        for what, seed, noise in modes:
+            seeds = [seed + 17 * j for j in range(4 * chain)]
+            flags = (noise,) * 4
+            for k in (n // 4, None):
+                rep.exact("iteration_chain", f"{mode} k={k} {what}",
+                          it.iteration_chain_cuda(4, bits_x, *ops, mu, k,
+                                                  seeds, flags, grid=grid),
+                          it.iteration_chain_plain(4, bits_x, *ops, mu, k,
+                                                   seeds, flags), bits_x)
+        if (m, n) == (8192, 8192):
+            ms = median_ms(lambda: it.iteration_chain_cuda(
+                4, bits_x, *ops, mu, n // 4, list(range(4 * chain)),
+                (True,) * 4), 5, 20)
+            print(f"  iteration     4x{bits_x} {m}x{n} SR: chain of {chain} "
+                  f"{ms:.4f} ms ({ms / chain:.4f} per iteration)")
 
 
 def check_restore_mat(rep: Report, phi, gen):
@@ -1288,6 +1388,7 @@ def phase_kernels(rep: Report, phi, mats, gen):
     iterates = check_mvm(rep, qphi, phit, qy, qx, modes)
     check_mvm_edges(rep, gen, modes)
     check_threshold(rep, iterates, xf, gen)
+    check_select_edges(rep, gen)
     check_ragged(rep, gen, modes)
     check_axpy(rep, gen, qphi, qy, qx, modes)
     check_mvm_batched(rep, gen, qphi, mats, modes)

@@ -12,38 +12,54 @@
 //
 // Numbers: bit-identical to the unfused kernel sequence -- two mvm.cu
 // launches, then one threshold.cu launch -- in deterministic and SR modes.
-// Each band runs mvm_band (mvm.cuh), whose row sums are mvm_kernel's (mvm.cu
-// walks every row in the same chunks, groups and order); phase C runs
-// threshold_select (threshold.cuh), the body of threshold_kernel, whose
-// kept set is the unique golden one at any thread count; the SR noise of
-// an element is Philox(seed, element index, leg) as in mvm.cu, and
-// iteration it of a chain takes the four per-op seeds of the unchained
-// solver loop (clover_tpu_torch/models/solvers.py _op_seeds).
+// The whole-iteration kernel runs each band through mvm_band (mvm.cuh),
+// the chained kernel through row_sums and band_epilogue (mvm_rows.cuh),
+// mvm.cu's own body; every one of them walks a row in the same chunks,
+// groups and order, so a row's f32 sum is mvm_kernel's.  Phase C runs the
+// select of threshold_kernel (threshold.cuh), whose kept set is the unique
+// golden one at any thread count.  The SR noise of an element is
+// Philox(seed, element index, leg) as in mvm.cu, and iteration it of a
+// chain takes the four per-op seeds of the unchained solver loop
+// (clover_tpu_torch/models/solvers.py _op_seeds).
 //
-// Design: one cooperative launch of MV_THREADS-thread CTAs, as many as fit
-// on the card at once and no more than the larger leg's bands.  Leg A walks
-// Phi's m_pad/64 bands in a grid-stride loop and writes t2's codes and
-// scales to a device scratch buffer (a few KB: it stays in L2 and is never
-// returned); a grid barrier; leg B walks PhiT's n_pad/64 bands against t2,
-// with u = x, and writes the new x.  The chained kernel adds a barrier and
-// phase C: CTA 0 selects the top K of the new x (at most 8192 elements, the
-// eligible sizes) while the other CTAs wait at the next barrier.  x
-// ping-pongs between two scratch slots (leg B of iteration it writes slot
-// it & 1, the thresholded codes go to a third buffer and keep the slot's
-// scales), so no leg reads a buffer that the same phase writes, and the
-// caller's x is never written.  Data written by another CTA is read with
+// Whole iteration: one cooperative launch of MV_THREADS-thread CTAs, as
+// many as fit on the card at once and no more than the larger leg's bands.
+// Leg A walks Phi's m_pad/64 bands in a grid-stride loop and writes t2's
+// codes and scales to a device scratch buffer (a few KB: it stays in L2);
+// a grid barrier; leg B walks PhiT's bands against t2, with u = x, and
+// writes the new x.  Data written by another CTA is read with
 // ld.global.cg (common.cuh ld_cg).
 //
-// Bound: device memory.  Per iteration both 4-bit matrices are read once,
-// m_pad * n_pad bytes, 33.6 MB at 4096x8192: 10.0 us at 3.35 TB/s, and the
-// pair fits in the 50 MB L2.  What the design does about it: one launch
-// per iteration (one per `chain` iterations) instead of three, so the
-// host's per-call cost and the launch gaps stop bounding small solves.
-// Known limits: leg A has m_pad/64 bands, 64 at 4096x8192, so half the CTAs
-// idle in it; phase C is one CTA of 256 threads while the others wait.
+// Chain: one cooperative launch of clusters of CHAIN_CLUSTER = 2 CTAs.
+// Bound: device memory, or L2 while the pair fits there: per iteration
+// both 4-bit matrices are read once, m_pad * n_pad bytes, 33.6 MB at
+// 4096x8192 (10.0 us at 3.35 TB/s; the 50 MB L2 holds the pair up to
+// that size); then a grid barrier and the select of 8192 elements in
+// phase C.  What the design does about it:
+//   - A band's 64 rows are split over the two CTAs of a cluster,
+//     CHAIN_ROWS = 4 a warp, as mvm.cu splits them (never the reduction):
+//     each CTA streams its rows through row_sums' ring of registers, the
+//     row sums meet in the cluster leader's shared memory (DSMEM), and the
+//     leader's warp 0 runs the band epilogue.  Clusters walk the bands
+//     grid-stride; 132 clusters fit at 2 CTAs an SM, so leg B's 128 bands
+//     at 4096x8192 take one round.  Clusters of 4 (62 fit: leg A's 64
+//     bands take two rounds) and of 8 measured slower (PERF.md §6).
+//     ys is double-buffered by band, so a peer's next sums never meet a
+//     leader still reading.
+//   - x lives in every CTA's shared memory: leg A reads it there, leg B
+//     takes it as u there, and phase C runs in every CTA: after the grid
+//     barrier that ends leg B, each CTA reads the new x (at most 8 KB,
+//     from L2 with ld_cg) and selects its top K into its own copy.  An
+//     iteration has two grid barriers, and no CTA waits while one other
+//     selects.  CTA 0 writes the thresholded codes out after the last
+//     iteration.
+// x ping-pongs between two scratch slots (leg B of iteration it writes
+// slot it & 1, the thresholded codes go to xt and keep the slot's scales),
+// and the caller's x is never written.
 #include <cooperative_groups.h>
 
 #include "mvm.cuh"
+#include "mvm_rows.cuh"
 #include "threshold.cuh"
 
 namespace cgrp = cooperative_groups;
@@ -51,6 +67,11 @@ namespace cgrp = cooperative_groups;
 namespace clover {
 
 constexpr int MAX_CHAIN = 16;
+constexpr int CHAIN_ROWS = 4;                        // rows a warp per band
+constexpr int CHAIN_DEPTH = Depth<CHAIN_ROWS>::PA;   // chunks in flight
+constexpr int CHAIN_CLUSTER = MV_ROWS / CHAIN_ROWS;  // CTAs sharing a band
+constexpr int CHAIN_N = 8192;  // the longest x of the chain (eligible sides)
+constexpr int CHAIN_SLOTS = CHAIN_N / (16 * MV_THREADS);  // select slots
 
 // The per-op SR seeds of each iteration (leg A mvm, axpy; leg B mvm, axpy)
 // and the four SR flags, which every iteration of a chain shares.
@@ -90,11 +111,136 @@ iteration_kernel(const int8_t* __restrict__ phi,
               sd.noise[2], sd.seed[2], sd.noise[3], sd.seed[3]);
 }
 
+// Predicated loads of a chain leg (zeros when !valid): x in this CTA's
+// shared memory, and t2, which other CTAs wrote, through ld.global.cg.
+__device__ __forceinline__ uint4 ld_smem(const int8_t* p, bool valid) {
+  uint4 v;
+  asm volatile(
+      "{\n"
+      "  .reg .pred q;\n"
+      "  setp.ne.b32 q, %5, 0;\n"
+      "  mov.b32 %0, 0;\n"
+      "  mov.b32 %1, 0;\n"
+      "  mov.b32 %2, 0;\n"
+      "  mov.b32 %3, 0;\n"
+      "  @q ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      "}\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "r"((uint32_t)__cvta_generic_to_shared(p)), "r"((int)valid));
+  return v;
+}
+__device__ __forceinline__ float ld_smem(const float* p, bool valid) {
+  float v;
+  asm volatile(
+      "{\n"
+      "  .reg .pred q;\n"
+      "  setp.ne.b32 q, %2, 0;\n"
+      "  mov.b32 %0, 0;\n"
+      "  @q ld.shared.f32 %0, [%1];\n"
+      "}\n"
+      : "=f"(v)
+      : "r"((uint32_t)__cvta_generic_to_shared(p)), "r"((int)valid));
+  return v;
+}
+__device__ __forceinline__ uint4 ld_cg(const int8_t* p, bool valid) {
+  uint4 v;
+  asm volatile(
+      "{\n"
+      "  .reg .pred q;\n"
+      "  setp.ne.b32 q, %5, 0;\n"
+      "  mov.b32 %0, 0;\n"
+      "  mov.b32 %1, 0;\n"
+      "  mov.b32 %2, 0;\n"
+      "  mov.b32 %3, 0;\n"
+      "  @q ld.global.cg.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      "}\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "r"((int)valid)
+      : "memory");
+  return v;
+}
+__device__ __forceinline__ float ld_cg(const float* p, bool valid) {
+  float v;
+  asm volatile(
+      "{\n"
+      "  .reg .pred q;\n"
+      "  setp.ne.b32 q, %2, 0;\n"
+      "  mov.b32 %0, 0;\n"
+      "  @q ld.global.cg.f32 %0, [%1];\n"
+      "}\n"
+      : "=f"(v)
+      : "l"(p), "r"((int)valid)
+      : "memory");
+  return v;
+}
+
+// Leg A reads x from shared memory, leg B t2 from L2; Phi, PhiT and their
+// scales are the launch's read-only inputs.
+struct LegALoads {
+  static __device__ __forceinline__ uint4 a(const int8_t* p, bool valid) {
+    return ld_ro(p, valid);
+  }
+  static __device__ __forceinline__ uint4 x(const int8_t* p, bool valid) {
+    return ld_smem(p, valid);
+  }
+  static __device__ __forceinline__ float sa(const float* p, bool valid) {
+    return ld_ro(p, valid);
+  }
+  static __device__ __forceinline__ float sx(const float* p, bool valid) {
+    return ld_smem(p, valid);
+  }
+};
+struct LegBLoads {
+  static __device__ __forceinline__ uint4 a(const int8_t* p, bool valid) {
+    return ld_ro(p, valid);
+  }
+  static __device__ __forceinline__ uint4 x(const int8_t* p, bool valid) {
+    return ld_cg(p, valid);
+  }
+  static __device__ __forceinline__ float sa(const float* p, bool valid) {
+    return ld_ro(p, valid);
+  }
+  static __device__ __forceinline__ float sx(const float* p, bool valid) {
+    return ld_cg(p, valid);
+  }
+};
+
+// p.out = Q(p.u + p.alpha * Q(A v)) over A's rows / 64 bands: cluster c
+// takes bands c, c + clusters, ...; CTA rank r of a cluster the band's rows
+// 16 r ... 16 r + 15, warp w of it the CHAIN_ROWS from 16 r + 2 w.  ys: the
+// leader's two buffers of band sums, ``parity`` the next one.
+template <int BA, int BX, class L>
+__device__ __forceinline__ void chain_leg(int64_t rows, const int8_t* a,
+                                          const float* as, const int8_t* v,
+                                          const float* vs, const MvmArgs& p,
+                                          float (*ys)[64], int& parity) {
+  constexpr int R = CHAIN_ROWS, C = CHAIN_CLUSTER;
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rank = (int)cluster.block_rank();
+  const int first = rank * (MV_WARPS * R) + warp * R;
+  const int64_t wa = p.n_pad * BA / 8, nb = p.n_pad / 64;
+  for (int64_t band = blockIdx.x / C; band < rows / 64;
+       band += gridDim.x / C) {
+    float sums[R];
+    row_sums<BA, BX, R, L, CHAIN_DEPTH>(a + (band * 64 + first) * wa,
+                                        as + band * nb, v, vs, p.n_pad, sums);
+    float* lead = cluster.map_shared_rank(ys[parity], 0);
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) lead[first + r] = sums[r];
+    }
+    cluster.sync();
+    if (rank == 0 && warp == 0) band_epilogue<BA, BX>(band, ys[parity], p);
+    parity ^= 1;
+  }
+}
+
 // (xb0, xs0), (xb1, xs1): the two slots of n_pad elements; xt: the
 // thresholded codes.  k < 0 is GD (no phase C).  The result is (xt, or the
 // codes of slot (chain - 1) & 1, and that slot's scales).
 template <int BA, int BX>
-__global__ void __launch_bounds__(MV_THREADS)
+__global__ void __launch_bounds__(MV_THREADS, 2)
 iteration_chain_kernel(const int8_t* __restrict__ phi,
                        const float* __restrict__ phi_s,
                        const int8_t* __restrict__ phit,
@@ -105,49 +251,103 @@ iteration_chain_kernel(const int8_t* __restrict__ phi,
                        int64_t n_pad, float mu, int64_t k, int chain,
                        IterSeeds sd) {
   constexpr int BO = (BA == 4 && BX == 4) ? 4 : 8;
+  __shared__ SelectSmem<MV_THREADS> sel;
+  __shared__ __align__(16) int8_t xc[CHAIN_N * BO / 8];  // this CTA's x
+  __shared__ float xcs[CHAIN_N / 64];
+  __shared__ float ys[2][64];
   cgrp::grid_group grid = cgrp::this_grid();
-  const int8_t* xc = x;
-  const float* xs = x_s;
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  const int tid = threadIdx.x;
+  const int64_t xw = n_pad * BO / 8, nb = n_pad / 64;
+  for (int64_t i = 16 * tid; i < xw; i += 16 * MV_THREADS)
+    *reinterpret_cast<uint4*>(xc + i) =
+        *reinterpret_cast<const uint4*>(x + i);
+  for (int64_t i = tid; i < nb; i += MV_THREADS) xcs[i] = x_s[i];
+  cluster.sync();  // x is in place, and every CTA of the cluster started
+  int parity = 0;
   for (int it = 0; it < chain; ++it) {
     const uint32_t* s = sd.seed + 4 * it;
-    leg<BA, BX>(m_pad, phi, phi_s, xc, xs, y, y_s, -1.0f, t2, t2_s, n_pad,
-                sd.noise[0], s[0], sd.noise[1], s[1]);
+    const MvmArgs pa = {phi,  phi_s,       xc,    xcs,        y,
+                        y_s,  -1.0f,       t2,    t2_s,       nullptr,
+                        n_pad, sd.noise[0], s[0], sd.noise[1], s[1]};
+    chain_leg<BA, BX, LegALoads>(m_pad, phi, phi_s, xc, xcs, pa, ys, parity);
     grid.sync();
     int8_t* oc = it & 1 ? xb1 : xb0;
     float* os = it & 1 ? xs1 : xs0;
-    leg<BA, BX>(n_pad, phit, phit_s, t2, t2_s, xc, xs, mu, oc, os, m_pad,
-                sd.noise[2], s[2], sd.noise[3], s[3]);
+    const MvmArgs pb = {phit,  phit_s,      t2,   t2_s,        xc,
+                        xcs,   mu,          oc,   os,          nullptr,
+                        m_pad, sd.noise[2], s[2], sd.noise[3], s[3]};
+    chain_leg<BA, BX, LegBLoads>(n_pad, phit, phit_s, t2, t2_s, pb, ys,
+                                 parity);
     grid.sync();
-    xc = oc;
-    xs = os;
+    // phase C, in every CTA: the new x into shared memory, its top K kept
     if (k >= 0) {
-      if (blockIdx.x == 0)
-        threshold_select<BO, MV_THREADS, true>(oc, os, xt, n_pad, k);
-      grid.sync();
-      xc = xt;
+      select_resident<BO, MV_THREADS, CHAIN_SLOTS, true>(sel, oc, os, xc,
+                                                         n_pad, k);
+    } else {
+      for (int64_t i = 16 * tid; i < xw; i += 16 * MV_THREADS)
+        *reinterpret_cast<uint4*>(xc + i) =
+            ld_cg(reinterpret_cast<const uint4*>(oc + i));
     }
+    for (int64_t i = tid; i < nb; i += MV_THREADS) xcs[i] = ld_cg(os + i);
+    __syncthreads();
+  }
+  if (k >= 0 && blockIdx.x == 0) {
+    for (int64_t i = 16 * tid; i < xw; i += 16 * MV_THREADS)
+      *reinterpret_cast<uint4*>(xt + i) =
+          *reinterpret_cast<const uint4*>(xc + i);
   }
 }
 
+// CTAs of a kernel that fit on the card at once: the whole-iteration
+// kernel's occupancy times the SMs; the chained kernel's co-resident
+// clusters times CHAIN_CLUSTER.
 template <int BA, int BX>
-cudaError_t occupancy(int chain, int* blocks) {
-  return chain ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     blocks, iteration_chain_kernel<BA, BX>, MV_THREADS, 0)
-               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     blocks, iteration_kernel<BA, BX>, MV_THREADS, 0);
+cudaError_t co_resident(int chain, int* ctas) {
+  if (!chain) {
+    int blocks = 0, device = 0, sms = 0;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, iteration_kernel<BA, BX>, MV_THREADS, 0);
+    if (e == cudaSuccess) e = cudaGetDevice(&device);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    *ctas = blocks * sms;
+    return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = CHAIN_CLUSTER;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(CHAIN_CLUSTER * 64);
+  cfg.blockDim = dim3(MV_THREADS);
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(
+      &clusters, iteration_chain_kernel<BA, BX>, &cfg);
+  *ctas = clusters * CHAIN_CLUSTER;
+  return e;
 }
 
-cudaLaunchConfig_t cooperative(int grid, cudaStream_t s,
+// A cooperative launch of ``grid`` CTAs, in clusters of ``cluster``.
+cudaLaunchConfig_t cooperative(int grid, int cluster, cudaStream_t s,
                                cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)grid);
   cfg.blockDim = dim3(MV_THREADS);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = s;
-  attr->id = cudaLaunchAttributeCooperative;
-  attr->val.cooperative = 1;
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = cluster > 1 ? 2 : 1;
   return cfg;
 }
 
@@ -162,13 +362,13 @@ bool fill_seeds(IterSeeds* sd, const uint32_t* seeds, const int* noise,
 
 }  // namespace clover
 
-// CTAs of one kernel that fit on an SM at once (the current device).
+// CTAs of one kernel that fit on the current device at once.
 extern "C" int clover_iteration_occupancy(int bits_a, int bits_x, int chain,
-                                          int* blocks_per_sm) {
+                                          int* ctas) {
   if (bits_a == 4 && bits_x == 4)
-    return (int)clover::occupancy<4, 4>(chain, blocks_per_sm);
+    return (int)clover::co_resident<4, 4>(chain, ctas);
   if (bits_a == 4 && bits_x == 8)
-    return (int)clover::occupancy<4, 8>(chain, blocks_per_sm);
+    return (int)clover::co_resident<4, 8>(chain, ctas);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -181,9 +381,9 @@ extern "C" int clover_iteration(
   clover::IterSeeds sd;
   if (!clover::fill_seeds(&sd, seeds, noise, 1))
     return (int)cudaErrorInvalidValue;
-  cudaLaunchAttribute attr;
+  cudaLaunchAttribute attr[2];
   const cudaLaunchConfig_t cfg =
-      clover::cooperative(grid, (cudaStream_t)stream, &attr);
+      clover::cooperative(grid, 1, (cudaStream_t)stream, attr);
   cudaError_t e;
   if (bits_a == 4 && bits_x == 4)
     e = cudaLaunchKernelEx(&cfg, clover::iteration_kernel<4, 4>, phi, phi_s,
@@ -198,6 +398,7 @@ extern "C" int clover_iteration(
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+// ``grid``: CTAs, a multiple of CHAIN_CLUSTER; n_pad at most CHAIN_N.
 extern "C" int clover_iteration_chain(
     const int8_t* phi, const float* phi_s, const int8_t* phit,
     const float* phit_s, const int8_t* y, const float* y_s, const int8_t* x,
@@ -207,11 +408,12 @@ extern "C" int clover_iteration_chain(
     int bits_a, int bits_x, const uint32_t* seeds, const int* noise, int grid,
     void* stream) {
   clover::IterSeeds sd;
-  if (!clover::fill_seeds(&sd, seeds, noise, chain))
+  if (!clover::fill_seeds(&sd, seeds, noise, chain) ||
+      n_pad > clover::CHAIN_N || grid % clover::CHAIN_CLUSTER != 0)
     return (int)cudaErrorInvalidValue;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      clover::cooperative(grid, (cudaStream_t)stream, &attr);
+  cudaLaunchAttribute attr[2];
+  const cudaLaunchConfig_t cfg = clover::cooperative(
+      grid, clover::CHAIN_CLUSTER, (cudaStream_t)stream, attr);
   cudaError_t e;
   if (bits_a == 4 && bits_x == 4)
     e = cudaLaunchKernelEx(&cfg, clover::iteration_chain_kernel<4, 4>, phi,

@@ -20,9 +20,10 @@ PhiT (its transpose), then y and x of the output class (4-bit for 4x4,
 
 The kernels are cooperative launches: every CTA must be resident at once
 for the grid barriers.  The grid is the larger leg's band count, capped by
-the CTAs that fit on the card (occupancy times SMs, computed once per
-device and kernel).  A grid that does not fit raises; nothing retries
-through the unfused path.
+the CTAs that fit on the card (computed once per device and kernel); the
+chained kernel runs in clusters of CHAIN_CLUSTER CTAs sharing each band,
+so its grid is that many CTAs per band, in whole clusters.  A grid that
+does not fit raises; nothing retries through the unfused path.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from .threshold import threshold4_plain, threshold8_plain
 
 MODES = ((4, 4), (4, 8))
 MAX_CHAIN = 16           # csrc/iteration.cu MAX_CHAIN
+CHAIN_CLUSTER = 2        # csrc/iteration.cu CHAIN_CLUSTER: CTAs a band
 SIDE_STEP = 512          # eligible padded sides: multiples of this ...
 SIDE_MAX = 8192          # ... up to this
 
@@ -108,22 +110,28 @@ def iteration_chain_plain(bits_a: int, bits_x: int, phi, phit, y, x,
 @functools.cache
 def co_resident(device_index: int, bits_a: int, bits_x: int,
                 chained: bool) -> int:
-    """CTAs of a kernel that fit on the card at once: occupancy x SMs."""
+    """CTAs of a kernel that fit on the card at once: the whole-iteration
+    kernel's occupancy x SMs, the chained kernel's co-resident clusters x
+    CHAIN_CLUSTER."""
     device = torch.device("cuda", device_index)
-    blocks = ctypes.c_int(0)
+    ctas = ctypes.c_int(0)
     _build.call("clover_iteration_occupancy", device, bits_a, bits_x,
-                int(chained), ctypes.addressof(blocks))
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return blocks.value * sms
+                int(chained), ctypes.addressof(ctas))
+    return ctas.value
 
 
 def launch_grid(device: torch.device, bits_a: int, bits_x: int,
                 chained: bool, bands: int, grid: int | None = None) -> int:
-    """The cooperative grid: ``grid``, or ``bands`` capped by what fits;
-    raise when it does not fit."""
+    """The cooperative grid in CTAs: ``grid``, or one CTA per band (the
+    chained kernel: a cluster of CHAIN_CLUSTER per band) capped by what
+    fits, in whole clusters; raise when it does not fit."""
     capacity = co_resident(device.index, bits_a, bits_x, chained)
+    unit = CHAIN_CLUSTER if chained else 1
     if grid is None:
-        grid = min(bands, capacity)
+        grid = min(bands * unit, capacity // unit * unit)
+    if grid % unit:
+        raise ValueError(f"grid {grid}: the chained iteration kernel runs "
+                         f"in whole clusters of {unit} CTAs")
     if not 1 <= grid <= capacity:
         kind = "chained iteration" if chained else "iteration"
         raise RuntimeError(
@@ -205,6 +213,9 @@ def iteration_chain_cuda(bits_a: int, bits_x: int, phi, phit, y, x,
                          f"1 to {MAX_CHAIN} iterations")
     if k is not None and not 0 <= k < 2 ** 31:
         raise ValueError(f"k={k} out of range")
+    if n_pad > SIDE_MAX:
+        raise ValueError(f"x of {n_pad} padded elements: the chained kernel "
+                         f"takes at most {SIDE_MAX}")
     grid = launch_grid(device, bits_a, bits_x, True,
                        max(m_pad, n_pad) // BLOCK, grid)
     xw, yw, nb = n_pad * bits_x // 8, m_pad * bits_x // 8, n_pad // BLOCK

@@ -1,5 +1,5 @@
-"""Time the MVM legs and the iteration kernels of two checkouts of
-clover_tpu_torch on one card.
+"""Time the MVM legs, the thresholds and the iteration kernels of two
+checkouts of clover_tpu_torch on one card.
 
     python3 kernel_ab.py OTHER_TREE
     python3 kernel_ab.py --sass OTHER_TREE
@@ -11,12 +11,16 @@ fresh process that builds its own tree's kernels and times both legs of
 the 8192x16384 IHT for mvm4 (4x4) and mvm8 (4x8, 8x8), both legs of the
 2048x524288 4-bit IHT (chip_smoke.py's phase 10), the f32-output MVM on a
 4096x4096 block (a 2x4 shard of the 8192x16384 matrix, through a ring of
-copies past the 50 MB L2), and the whole-iteration and chained (4
-iterations) kernels of the 4096x8192 4x4 IHT, SR on, and the batched MVM
+copies past the 50 MB L2), the exact thresholds (csrc/threshold.cu: 4-
+and 8-bit at the main path's n = 16384, K = 4096, single and stacked B =
+8, and the 4-bit radix select at n = 2^19, K = 64), the whole-iteration
+and chained (4 iterations) kernels of the 4096x8192 IHT, 4x4 and 4x8, SR
+on, and the batched MVM
 (csrc/mvm_batched.cu: 4x4, 4x8 and 8x8 at 8192x16384 with B = 8, 4x4 at
 16384x16384 with B = 2, 8 and 32, SR on; the f32-output mode, 4x4 at
-8192x16384 with B = 8), each batched leg first held bit for bit to its
-plain version, as chip_smoke.py's phase 2 does: the median of 5 windows
+8192x16384 with B = 8), each threshold, iteration and batched leg first
+held bit for bit to its plain version, as chip_smoke.py's phase 2 does:
+the median of 5 windows
 of 20 back-to-back launches queued behind a spin kernel.  It also times
 the host's side of one mvm4_cuda call on a 128x256 problem ("mvm4
 host-call": the median of 5 windows of 1000 calls enqueued back to back,
@@ -29,16 +33,17 @@ rows-per-warp geometry of csrc/mvm.cu (kernels/mvm.py ROWS_PER_WARP),
 each output held bit for bit to the plain version first, and marks the
 geometry kernels/mvm.py rows_per_warp picks.
 
-With ``--e2e`` it runs each tree's own chip_smoke.py phases on the
-batching path, each run a fresh process: E2E_ROUNDS rounds of A, B, B, A
-runs of phase 5 (the batched IHT, and its device time per batched
-iteration by torch.profiler) and phase 6 (the MVMServer), then phase 14
-(the sharded path on 8 ranks sharing the card) once in each tree, and
-prints each tree's median problem-iterations/s and requests/s over its
-runs.  Those paths are host-bound where their kernels are fast, and one
-run of them spreads by tens of percent between processes; phase 5's 8
-single solves run the same kernels in both trees and show the host's
-drift.
+With ``--e2e`` it runs each tree's own chip_smoke.py phases, each run a
+fresh process: E2E_ROUNDS rounds of A, B, B, A runs of phase 3's
+untraced 4-bit 8192x16384 solve (iterations/s), phase 5 (the batched
+IHT, and its device time per batched iteration by torch.profiler), phase
+6 (the MVMServer) and phase 7 (the small IHT: chained iterations/s at
+4096x8192 and 2048x4096, 4x4 and 4x8), then phase 14 (the sharded path
+on 8 ranks sharing the card) once in each tree, and prints each tree's
+median of every rate over its runs.  The batching and serving paths are
+host-bound where their kernels are fast, and one run of them spreads by
+tens of percent between processes; phase 5's 8 single solves run the
+same kernels in both trees and show the host's drift.
 
 With ``--sass`` it times nothing: it builds both trees' libraries and
 compares the machine code (``cuobjdump -sass``) of every kernel, printing
@@ -61,7 +66,7 @@ import sys
 import time
 from pathlib import Path
 
-M, N = 8192, 16384
+M, N, K = 8192, 16384, 4096
 MU = 0.0002138596817016602      # the tuned 4-bit mu at this size
 SMALL = (4096, 8192)            # the small path's iteration kernels
 SMALL_MU = 0.0005050158681869508
@@ -83,6 +88,9 @@ E2E_RATES = {
     "phase 14 sharded IHT": r"gloo: ([\d.]+) iterations/s",
     "phase 14 sharded server 4x4": r"MVMServer 4x4 .* ([\d.]+) requests/s",
 }
+# phase 7's header line of a size and mode, and its chained rate below it
+SMALL_HEADER = re.compile(r"^  (4x\d) (\d+x\d+) K=")
+SMALL_CHAINED = re.compile(r"^    chained\s+([\d.]+) iterations/s")
 SPIN_CYCLES = 1 << 23
 
 
@@ -193,6 +201,59 @@ def batched_legs(tt, kn, torch) -> dict:
     return out
 
 
+def threshold_legs(tt, kn, torch) -> dict:
+    """Leg name -> (one threshold launch on dense SR data; its plain
+    version), the operands made once, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def vector(n, bits):
+        return tt.quantize(torch.randn(n, generator=gen, device="cuda"),
+                           bits, generator=gen)
+
+    out = {}
+    for bits in (4, 8):
+        cuda = kn.threshold4_cuda if bits == 4 else kn.threshold8_cuda
+        plain = (kn.threshold4_plain if bits == 4 else
+                 lambda c, s, k: kn.threshold8_plain(c, s, k, c.shape[-1]))
+        q = vector(N, bits)
+        stack = tt.stack_vectors([vector(N, bits) for _ in range(BATCHED)])
+        for name, v in ((f"n={N} K={K}", q),
+                        (f"B={BATCHED} n={N} K={K}", stack)):
+            out[f"threshold{bits} {name}"] = (
+                functools.partial(cuda, v.codes, v.scales, K),
+                functools.partial(plain, v.codes, v.scales, K))
+    q = vector(LARGE[1], 4)
+    out["threshold4 n=2^19 K=64"] = (
+        functools.partial(kn.threshold4_cuda, q.codes, q.scales, 64),
+        functools.partial(kn.threshold4_plain, q.codes, q.scales, 64))
+    return out
+
+
+def iteration_legs(tt, kn, torch) -> dict:
+    """Leg name -> (one whole-iteration or chained (4 iterations, k = n/4)
+    launch of the 4096x8192 IHT, 4x4 and 4x8, SR on; its plain version)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    m, n = SMALL
+    q = tt.quantize(torch.rand(m, n, generator=gen, device="cuda") * 2 - 1, 4)
+    qt = tt.transpose(q)
+    y = torch.rand(m, generator=gen, device="cuda") * 2 - 1
+    x = torch.randn(n, generator=gen, device="cuda")
+    out = {}
+    for bits_x in (4, 8):
+        ops = [(v.codes, v.scales) for v in (
+            q, qt, tt.quantize(y, bits_x), tt.quantize(x, bits_x))]
+        one = (4, bits_x, *ops, SMALL_MU, [1, 2, 3, 4], (True,) * 4)
+        chain = (4, bits_x, *ops, SMALL_MU, n // 4, list(range(16)),
+                 (True,) * 4)
+        out[f"iteration 4x{bits_x}"] = (
+            functools.partial(kn.iteration_cuda, *one),
+            functools.partial(kn.iteration_plain, *one))
+        out[f"iteration_chain 4x{bits_x}"] = (
+            functools.partial(kn.iteration_chain_cuda, *chain),
+            functools.partial(kn.iteration_chain_plain, *chain))
+    return out
+
+
 def same(got, want, torch) -> bool:
     """Kernel output equal to the plain one: (codes, scales), or f32 bits."""
     if isinstance(got, tuple):
@@ -236,19 +297,10 @@ def child(tree: str) -> None:
     out = {name: median_ms(call)
            for name, (call, _, _) in legs(tt, kn, torch).items()}
     torch.cuda.empty_cache()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    m, n = SMALL
-    q = tt.quantize(torch.rand(m, n, generator=gen, device="cuda") * 2 - 1, 4)
-    ops = [(v.codes, v.scales) for v in (
-        q, tt.transpose(q),
-        tt.quantize(torch.rand(m, generator=gen, device="cuda") * 2 - 1, 4),
-        tt.quantize(torch.randn(n, generator=gen, device="cuda"), 4))]
-    out["iteration 4x4"] = median_ms(lambda: kn.iteration_cuda(
-        4, 4, *ops, SMALL_MU, [1, 2, 3, 4], (True,) * 4))
-    out["iteration_chain 4x4"] = median_ms(lambda: kn.iteration_chain_cuda(
-        4, 4, *ops, SMALL_MU, n // 4, list(range(16)), (True,) * 4))
-    torch.cuda.empty_cache()
-    for name, (call, plain) in batched_legs(tt, kn, torch).items():
+    checked = {**threshold_legs(tt, kn, torch),
+               **iteration_legs(tt, kn, torch),
+               **batched_legs(tt, kn, torch)}
+    for name, (call, plain) in checked.items():
         if not same(call(), plain(), torch):
             raise AssertionError(f"{tree}: {name}: kernel != plain")
         out[name] = median_ms(call)
@@ -313,10 +365,37 @@ def batched_device_ms(cs, phi, iters: int = 20) -> float:
     return us / iters / 1e3
 
 
+def untraced_4bit(cs, phi, y) -> float:
+    """Iterations/s of phase 3's untraced 4-bit 8192x16384 solve (host
+    clock, TIMED_ITERS iterations after a warm-up)."""
+    import torch
+    import clover_tpu_torch as tt
+    bits_a, bits_v, iters, mu, _ = cs.config("4")
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
+    qphi = tt.quantize(phi, bits_a, generator=gen)
+    qy = tt.quantize(y, bits_v, generator=gen)
+    host_ms, _ = cs.timed_solve(qphi, tt.transpose(qphi), qy, iters, mu,
+                                None)
+    return 1e3 / host_ms
+
+
+def small_rates(text: str) -> dict:
+    """Phase 7's chained iterations/s by mode and size."""
+    rates, head = {}, None
+    for line in text.splitlines():
+        found = SMALL_HEADER.match(line)
+        if found:
+            head = f"{found.group(1)} {found.group(2)}"
+        found = SMALL_CHAINED.match(line)
+        if found and head:
+            rates[f"phase 7 chained {head}"] = [float(found.group(1))]
+    return rates
+
+
 def e2e_child(tree: str, sharded: bool) -> None:
-    """Run ``tree``'s chip_smoke.py phases 5 and 6 once (or, ``sharded``,
-    phase 14) and time the batched IHT's device work; print one JSON line
-    of the rates each phase printed."""
+    """Run ``tree``'s chip_smoke.py phases 3 (the untraced 4-bit solve), 5,
+    6 and 7 once (or, ``sharded``, phase 14) and time the batched IHT's
+    device work; print one JSON line of the rates each phase printed."""
     import contextlib
     import io
     sys.path[0] = tree
@@ -332,12 +411,19 @@ def e2e_child(tree: str, sharded: bool) -> None:
             cs.phase_sharded()
         else:
             gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-            phi, _, _ = make_iht_problem(cs.M, cs.N, cs.K, generator=gen)
+            phi, _, y = make_iht_problem(cs.M, cs.N, cs.K, generator=gen)
             mats = cs.serving_matrices(gen)
+            extra["phase 3 untraced 4-bit"] = [untraced_4bit(cs, phi, y)]
             cs.phase_batched_iht(phi)
             cs.phase_server(mats, gen)
             extra["phase 5 device ms per batched iteration"] = [
                 batched_device_ms(cs, phi)]
+            del phi, y, mats
+            torch.cuda.empty_cache()
+            small = io.StringIO()
+            with contextlib.redirect_stdout(small):
+                cs.phase_small_iht()
+            extra.update(small_rates(small.getvalue()))
     rates = {name: [float(v) for v in re.findall(pattern, out.getvalue(),
                                                  re.MULTILINE)]
              for name, pattern in E2E_RATES.items()}
@@ -346,8 +432,9 @@ def e2e_child(tree: str, sharded: bool) -> None:
 
 
 def e2e(trees: dict) -> None:
-    """E2E_ROUNDS rounds of A, B, B, A runs of e2e_child (phases 5 and 6),
-    then phase 14 once in A and in B; each tree's median of every rate."""
+    """E2E_ROUNDS rounds of A, B, B, A runs of e2e_child (phases 3, 5, 6
+    and 7), then phase 14 once in A and in B; each tree's median of every
+    rate."""
     import statistics
     runs = {"A": {}, "B": {}}
     order = [(label, False) for _ in range(E2E_ROUNDS) for label in "ABBA"]
@@ -378,7 +465,10 @@ assert Path(clover_tpu_torch.__file__).resolve().is_relative_to(
     Path(sys.argv[1]).resolve())
 print(_build.library().path)
 """
+# an instruction's line (its address, text and low 64 bits) and the line
+# after it (its high 64 bits: the control bits)
 INSTRUCTION = re.compile(r"^\s+/\*[0-9a-f]{4,}\*/")
+CONTROL = re.compile(r"^\s+/\* 0x[0-9a-f]{16} \*/\s*$")
 # instructions counted in each kernel of B only: tensor-core products and
 # the CUDA-core int8 dot
 MIX = ("IMMA", "IGMMA", "HMMA", "IDP.4A")
@@ -386,7 +476,10 @@ MIX = ("IMMA", "IGMMA", "HMMA", "IDP.4A")
 
 def sass(tree: str) -> dict:
     """Kernel symbol -> its SASS instructions (``cuobjdump -sass``) in
-    ``tree``'s library, built in a process of its own."""
+    ``tree``'s library, built in a process of its own: each instruction's
+    text and both 64-bit words of its encoding, with runs of blanks made
+    one (cuobjdump pads every line to the widest instruction of the whole
+    library, so the padding changes with kernels elsewhere)."""
     lib = subprocess.run([sys.executable, "-c", LIBRARY_OF, tree],
                          capture_output=True, text=True, check=True,
                          timeout=600).stdout.strip().splitlines()[-1]
@@ -400,8 +493,9 @@ def sass(tree: str) -> dict:
         if found:
             name = found.group(1)
             bodies[name] = []
-        elif name is not None and INSTRUCTION.match(line):
-            bodies[name].append(line.strip())
+        elif name is not None and (INSTRUCTION.match(line)
+                                   or CONTROL.match(line)):
+            bodies[name].append(" ".join(line.split()))
     return bodies
 
 

@@ -20,6 +20,9 @@ is held by its kept support (at least 85% shared; measured 87.5-100% over
 measured at most 0.17 and 0.47).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -264,19 +267,35 @@ def test_solver_keeps_the_unfused_path_where_not_eligible(rng, monkeypatch):
 
 
 def test_cooperative_grid_guard(monkeypatch):
-    """The grid is the bands capped by the co-resident CTAs; a grid that
-    does not fit raises with the numbers, and nothing falls back."""
+    """The grid is the bands capped by the co-resident CTAs -- for the
+    chained kernel a cluster of CHAIN_CLUSTER CTAs per band, in whole
+    clusters; a grid that does not fit raises with the numbers, and
+    nothing falls back."""
     capacity = {"n": 3}
     monkeypatch.setattr(fused, "co_resident",
                         lambda *_a: capacity["n"])
     dev = torch.device("cuda", 0)
-    assert fused.launch_grid(dev, 4, 4, True, bands=16) == 3
+    assert fused.launch_grid(dev, 4, 4, False, bands=16) == 3
     assert fused.launch_grid(dev, 4, 8, False, bands=2) == 2
     assert fused.launch_grid(dev, 4, 4, False, bands=16, grid=3) == 3
     with pytest.raises(RuntimeError, match=r"cooperative launch of 5 CTAs "
-                       r"of the 4x4 chained iteration kernel: 3 fit on "
-                       r"cuda:0 at once"):
-        fused.launch_grid(dev, 4, 4, True, bands=16, grid=5)
+                       r"of the 4x4 iteration kernel: 3 fit on cuda:0 at "
+                       r"once"):
+        fused.launch_grid(dev, 4, 4, False, bands=16, grid=5)
+    c = fused.CHAIN_CLUSTER
+    capacity["n"] = 7 * c + 1
+    assert fused.launch_grid(dev, 4, 4, True, bands=16) == 7 * c
+    assert fused.launch_grid(dev, 4, 8, True, bands=2) == 2 * c
+    assert fused.launch_grid(dev, 4, 4, True, bands=16, grid=c) == c
+    with pytest.raises(ValueError, match=f"whole clusters of {c} CTAs"):
+        fused.launch_grid(dev, 4, 4, True, bands=16, grid=c + 1)
+    with pytest.raises(RuntimeError, match=rf"cooperative launch of {8 * c} "
+                       rf"CTAs of the 4x4 chained iteration kernel: "
+                       rf"{7 * c + 1} fit on cuda:0 at once"):
+        fused.launch_grid(dev, 4, 4, True, bands=16, grid=8 * c)
+    capacity["n"] = c - 1
+    with pytest.raises(RuntimeError, match=f"{c - 1} fit on cuda:0"):
+        fused.launch_grid(dev, 4, 4, True, bands=16)
     capacity["n"] = 0
     with pytest.raises(RuntimeError, match="0 fit on cuda:0"):
         fused.launch_grid(dev, 4, 8, False, bands=16)
@@ -295,3 +314,36 @@ def test_kernel_wrappers_refuse_cpu_tensors(rng):
         fused.iteration_cuda(8, 8, *ops, MU)
     assert fused.iteration_cuda.launches == 0
     assert fused.iteration_chain_cuda.launches == 0
+
+
+CSRC = Path(fused.__file__).resolve().parent.parent / "csrc"
+
+
+def _constant(source: str, name: str) -> str:
+    return re.search(rf"constexpr int {name} = ([^;]+);",
+                     (CSRC / source).read_text()).group(1)
+
+
+def test_chain_geometry_covers_every_row_once():
+    """csrc/iteration.cu chain_leg: cluster c of CHAIN_CLUSTER CTAs takes
+    bands c, c + clusters, ...; CTA rank r the band's rows
+    MV_WARPS * CHAIN_ROWS * r + CHAIN_ROWS * w ... for warp w.  Every
+    (band, row) is summed by exactly one warp at every grid the wrapper
+    can launch, and the Python cluster size is the source's."""
+    rows = int(_constant("iteration.cu", "CHAIN_ROWS"))
+    warps = int(_constant("mvm.cuh", "MV_WARPS"))
+    assert _constant("iteration.cu", "CHAIN_CLUSTER") == \
+        "MV_ROWS / CHAIN_ROWS"
+    assert _constant("mvm.cuh", "MV_ROWS") == "64 / MV_WARPS"
+    cluster = 64 // warps // rows
+    assert cluster == fused.CHAIN_CLUSTER
+    for bands in (1, 8, 16, 64, 128):
+        for clusters in (1, 7, 64, 66):
+            cover = np.zeros((bands, 64), np.int64)
+            for cta in range(clusters * cluster):
+                rank = cta % cluster
+                for band in range(cta // cluster, bands, clusters):
+                    for w in range(warps):
+                        first = rank * warps * rows + w * rows
+                        cover[band, first:first + rows] += 1
+            assert (cover == 1).all(), (bands, clusters)

@@ -297,3 +297,152 @@ def test_hybrid_reaches_its_kernels(monkeypatch):
     got = tt.threshold(q, 100)
     assert calls == ["hist4", "mask4"]
     assert torch.equal(got.codes, threshold4_plain(q.codes, q.scales, 100))
+
+
+# -- the kernel's select (csrc/threshold.cuh), modelled in NumPy ----------
+# On the bytes and scales the kernel loads: slots of 16 index-contiguous
+# elements (a 4-bit slot the low or the high nibbles of 16 bytes), one
+# IEEE division a slot, three radix passes of 12, 10 and 10 bits with the
+# one-pattern early exit (from the second pass on), the ties ranked in
+# index order.
+
+SEL_DIGITS = ((4096, 20), (1024, 10), (1024, 0))   # threshold.cuh passes
+
+
+def _slot_bytes(codes: np.ndarray, bits: int):
+    """(nq, 16) code bytes of each slot, and each slot's byte offset."""
+    nq = codes.size * 8 // bits // 16
+    g = np.arange(nq)
+    off = (g >> 2) * 32 + 16 * (g & 1) if bits == 4 else g * 16
+    return codes[off[:, None] + np.arange(16)], off
+
+
+def _slot_codes(byts: np.ndarray, bits: int) -> np.ndarray:
+    """Signed element codes of each slot (quarters q >= 2 of a 4-bit block
+    take the high nibbles)."""
+    b = byts.astype(np.int32)
+    if bits == 8:
+        return b
+    high = (np.arange(b.shape[0]) & 3) >= 2
+    return np.where(high[:, None], b >> 4, (b & 15) - 8)
+
+
+def _select_passes(pat, k):
+    """(tau, fill) from the patterns by the kernel's passes; -> also the
+    passes run."""
+    if k == 0:
+        return 0xFFFFFFFF, 0, 0
+    prefix, mask, kk = 0, 0, min(k, pat.size)
+    for run, (bins, shift) in enumerate(SEL_DIGITS, 1):
+        ps = pat[(pat & np.uint32(mask)) == prefix]
+        if run > 1 and ps.min() == ps.max():    # one pattern left: tau
+            return int(ps.min()), kk, run
+        hist = np.bincount((ps >> shift) & (bins - 1), minlength=bins)
+        cum = np.cumsum(hist[::-1])             # descending digits
+        i = int(np.searchsorted(cum, kk))       # first bin reaching kk
+        kk -= int(cum[i - 1]) if i else 0
+        prefix |= (bins - 1 - i) << shift
+        mask |= (bins - 1) << shift
+    return prefix, kk, len(SEL_DIGITS)
+
+
+def _select_model(codes: np.ndarray, scales: np.ndarray, k: int, bits: int):
+    """The kernel's output bytes, and its passes."""
+    qm = np.float32(7 if bits == 4 else 127)
+    byts, off = _slot_bytes(codes.view(np.int8), bits)
+    nq = byts.shape[0]
+    g = np.arange(nq)
+    m = scales[g >> 2].astype(np.float32) / qm       # one division a slot
+    c = _slot_codes(byts, bits)
+    # |code| as 2^23 + |code| - 2^23 in f32, times m
+    mag = (np.abs(c) | 0x4B000000).astype(np.uint32).view(np.float32)
+    pat = ((mag - np.float32(8388608.0)) * m[:, None]).view(np.uint32)
+    tau, fill, runs = _select_passes(pat.ravel(), k)
+    tie = (pat == tau).ravel()
+    rank = np.cumsum(tie) - tie                 # in slot = index order
+    keep = ((pat.ravel() > tau) | (tie & (rank < fill))).reshape(nq, 16)
+    out = np.zeros(codes.size, np.uint8)
+    b = byts.view(np.uint8)
+    if bits == 8:
+        out[off[:, None] + np.arange(16)] = np.where(keep, b, 0)
+    else:
+        lo_q = (g & 3) < 2                      # quarters writing bytes
+        lo = np.where(keep[lo_q], b[lo_q] & 0x0F, 0x08)
+        hi = np.where(keep[np.flatnonzero(lo_q) + 2], b[lo_q] & 0xF0, 0)
+        out[off[lo_q][:, None] + np.arange(16)] = lo | hi
+    return out.view(np.int8), runs
+
+
+# blocks (scale a, scale b, code a, code b) whose values order one way with
+# s / qmax divided in IEEE and tie with s * (1 / qmax): a multiply by the
+# reciprocal keeps other elements
+DIVISION_ORDER = {4: (1071573821, 1066704083, 2, 3),
+                  8: (1061287518, 1073648478, 63, 24)}
+
+
+def _select_cases(rng, n: int, bits: int, k: int):
+    """(name, codes, scales): dense, tie storms, k > nnz, every code at
+    the top magnitude, subnormal and vanishing s / qmax, and blocks whose
+    order needs the IEEE division."""
+    def q(v):
+        t = tt.quantize(torch.from_numpy(v.astype(np.float32)), bits)
+        return t.codes.numpy(), t.scales.numpy()
+    storm = np.repeat(rng.random(n // 64), 64)
+    sparse = np.zeros(n)
+    sparse[rng.permutation(n)[:max(1, k // 2)]] = 1.0
+    dense = q(rng.standard_normal(n))
+    top = (7 if bits == 4 else 127) * np.where(rng.random(n) < 0.5, 1, -1)
+    yield "dense", *dense
+    yield "integer", *q(rng.integers(-3, 4, n))
+    yield "storm", *q(storm)
+    yield "one value", *q(np.full(n, 0.5))
+    yield "k > nnz", *q(sparse)
+    yield "top codes", *q(top * np.repeat(rng.random(n // 64) + 0.5, 64))
+    yield "subnormal m", dense[0], np.full_like(dense[1], 1e-40)
+    yield "m = 0", dense[0], np.full_like(dense[1], 1e-45)
+    mixed = np.where(rng.random(n // 64) < 0.5, dense[1], dense[1] * 1e-39)
+    yield "mixed subnormal", dense[0], mixed.astype(np.float32)
+    sa, sb, ca, cb = DIVISION_ORDER[bits]
+    pair = np.repeat(np.array([ca, cb], np.int8), 64)
+    codes = torch.from_numpy(np.tile(pair, n // 128))
+    if bits == 4:
+        codes = tt.pack_nibbles(codes)
+    scales = np.tile(np.array([sa, sb], np.uint32).view(np.float32), n // 128)
+    yield "division order", codes.numpy(), scales
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("n", [128, 1024, 16384, 16512])
+def test_select_model_matches_plain(rng, bits, n):
+    """The kernel's arithmetic, byte for byte the plain version's, at k in
+    {0, 1, K, n} (k > nnz on the sparse case); n = 16512 leaves a partial last chunk of 1024
+    slots (and 128 a CTA mostly idle)."""
+    plain = (threshold4_plain if bits == 4 else
+             lambda c, s, k: threshold8_plain(c, s, k, c.shape[0]))
+    K = max(1, n // 4)
+    for name, codes, scales in _select_cases(rng, n, bits, K):
+        for k in (0, 1, K, n):
+            got, _ = _select_model(codes, scales, k, bits)
+            want = plain(torch.from_numpy(codes), torch.from_numpy(scales),
+                         k).numpy()
+            np.testing.assert_array_equal(got, want,
+                                          err_msg=f"{name} k={k}")
+
+
+def test_select_model_early_exit():
+    """One value everywhere ends in the second pass; dense 4-bit data
+    within three; ties at tau over several blocks fill in index order
+    across both nibble halves."""
+    rng = np.random.default_rng(7)
+    codes, scales = next((c, s) for name, c, s in
+                         _select_cases(rng, 1024, 4, 256) if name ==
+                         "one value")
+    out, runs = _select_model(codes, scales, 100, 4)
+    assert runs == 2
+    kept = tt.unpack_nibbles(torch.from_numpy(out)).numpy() != 0
+    np.testing.assert_array_equal(kept, np.arange(1024) < 100)
+    dense = tt.quantize(torch.from_numpy(rng.standard_normal(16384)
+                                         .astype(np.float32)), 4)
+    _, runs = _select_model(dense.codes.numpy(), dense.scales.numpy(),
+                            4096, 4)
+    assert runs <= 3
