@@ -46,12 +46,18 @@ on a 1x1 mesh in this process.
 
 Phases, each of which raises on failure:
 
-1. card and build: the card's name and power limit, torch/CUDA versions,
-   and the nvcc build of clover_tpu_torch/csrc/*.cu (into build/);
+1. card and build: the card's name and power limit, its SM clocks,
+   torch/CUDA versions, and the nvcc build of clover_tpu_torch/csrc/*.cu
+   (into build/);
 2. each kernel against its plain torch version on the card, at the main
    paths' shapes and at a ragged 200x300, deterministic and SR:
    quantize, restore, transpose, threshold and the MVM+AXPY (both legs
-   of every mode, with and without the AXPY) bit-identical; the MVM at
+   of every mode, with and without the AXPY) bit-identical; the matrix
+   quantize and the transposes also at the set-up kernels' edge shapes
+   (SETUP_EDGES: tile counts no multiple of the persistent grid's share or
+   of the transpose's 4x4-tile strips) on edge_matrix data (an all-zero
+   tile, a tile on +-absmax, subnormal tiles), det and SR, 4- and 8-bit,
+   and the quantize on forced 64-bit Philox counters; the MVM at
    the shapes its launch geometry makes edge cases (MVM_EDGES,
    F32_EDGES: one and two bands, 5 and 10 bands, rows of >= 16 chunks,
    partial last chunks) in every mode at every rows-per-warp geometry of
@@ -80,8 +86,9 @@ Phases, each of which raises on failure:
    and its plain version (n = 2^19, 2^20, 2^23; K = 1, 64, 256; uniform,
    integer-valued and k > nnz data) and free of host syncs (torch's sync
    debug mode), with the hybrid's split (hist4, selector, mask4) timed
-   beside the radix kernel; the dma and salted probes bit-identical (4-
-   and 8-bit 8192x16384, 200x300 and the 512 MB stack), with
+   beside the radix kernel; the dma, cluster dma and salted probes
+   bit-identical (4- and 8-bit 8192x16384 and 200x300; the cluster probe
+   also at MVM_EDGES and 2048x4096, the others on the 512 MB stack), with
    dma_probe_stream's p and bytes; the f32-output modes bit-identical
    (mvm_f32 4x4, 4x8, 8x8 at 8192x16384, on a 4096x4096 shard's block and
    on 64-multiple ragged blocks; mvm_batched_f32 at B = 2, 8, 32 and 1,
@@ -98,7 +105,10 @@ Phases, each of which raises on failure:
    with a seeded generator (stochastic rounding), deterministic
    iterations as in the search that tuned mu; exact launch counts,
    relative recovery error (the trace's last entry against a host-side
-   restore), iterations/s traced and untraced;
+   restore), iterations/s traced and untraced; for the untraced 4-bit
+   solve also the wall time of the whole solve from quantize(Phi) to the
+   result (median of WHOLE_SOLVES) beside its kernels' set-up and
+   iteration times;
 4. a deterministic solve per configuration, kernels against plain
    versions;
 5. the batched IHT: exact launch counts, every problem's error below
@@ -133,7 +143,8 @@ Phases, each of which raises on failure:
     iterations/s and the device's busy share;
 11. ``-p --quick`` through the CLI: exit 0, every row printed, none but
     the L2-warm rows above 100% of the card's memory rate, each 4/8-bit
-    MVM row with its % of the probe floor, a launch of every kernel -p
+    MVM row with its % of the cluster probe floor (the MVM's own launch
+    geometry), none above FLOOR_SHARE_MAX, a launch of every kernel -p
     reaches, the wall time;
 12. ``-g --quick`` through the CLI: exit 0, a row for every kind (GD and
     IHT, pure and mixed), size (256, 384) and precision; each kind's
@@ -196,6 +207,7 @@ MODES = ((4, 4), (4, 8), (8, 8))
 CLIENTS = 4
 WAIT_S = 60.0                 # bound on every wait for a future or thread
 TIMED_ITERS = 100
+WHOLE_SOLVES = 5              # phase 3's timed whole solves, set-up included
 SEED = 0
 MVM_SCALE_RTOL = 1e-6
 SOLVE_ERR_TOL = 0.01
@@ -241,10 +253,14 @@ VALIDATE_KERNELS = ("quantize_mat", "quantize_vec", "transpose4",
 PERF_KERNELS = ("quantize_mat", "quantize_vec", "transpose4", "transpose8",
                 "mvm4", "mvm8", "threshold4", "threshold8", "restore_vec",
                 "axpy", "mvm_batched", "iteration", "iteration_chain", "dot",
-                "hist4", "mask4", "dma_probe", "salted_probe")
+                "hist4", "mask4", "dma_probe", "dma_probe_cluster",
+                "salted_probe")
 SEARCH_KERNELS = ("quantize_mat", "quantize_vec", "transpose4", "transpose8",
                   "mvm4", "mvm8", "threshold4", "threshold8", "restore_vec")
 SEARCH_RTOL = 1e-5            # -g quality targets, card against CPU
+FLOOR_SHARE_MAX = 105.0       # % of the cluster probe floor an MVM row may
+                              # read: the two share a geometry, and two
+                              # timings of one stream spread by a few %
 
 # kernel -> (CUDA source, pallas_call it replaces)
 KERNEL_INFO = {
@@ -281,6 +297,8 @@ KERNEL_INFO = {
               "clover_tpu/kernels/threshold.py:596"),
     "dma_probe": ("clover_tpu_torch/csrc/probes.cu",
                   "clover_tpu/kernels/probes.py:46"),
+    "dma_probe_cluster": ("clover_tpu_torch/csrc/probes.cu",
+                          "clover_tpu/kernels/probes.py:46"),
     "salted_probe": ("clover_tpu_torch/csrc/probes.cu",
                      "clover_tpu/kernels/probes.py:80"),
     "mvm_f32": ("clover_tpu_torch/csrc/mvm.cu",
@@ -294,6 +312,10 @@ KERNEL_INFO = {
 # multiple of 4 or 8) with a partial chunk -- and its f32 mode's
 # (multiples of 64) -- one band with a partial chunk, 5 bands of 16448
 MVM_EDGES = ((128, 16512), (640, 1152))
+# shapes whose tile counts are no multiple of csrc/quantize.cu's persistent
+# grid share nor of csrc/transpose.cu's 4x4-tile strips (short strips on
+# both sides)
+SETUP_EDGES = ((128, 384), (384, 640), (8320, 16512))
 F32_EDGES = ((64, 576), (320, 16448))
 F32_BATCHES = (2, 8, 32)      # mvm_batched_f32 checks at NS x NS
 SHARD = (M // 2, N // 4)      # a 2x4 mesh's block of the M x N matrix
@@ -418,8 +440,14 @@ def phase_build():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print("== 1. card and build")
     print(smi.splitlines()[0])
+    # the SM clock bounds an issue-bound kernel (PERF.md's SR issue bound)
+    print(f"SM clock max, now: {clocks.splitlines()[0]}")
     print(f"torch {torch.__version__}  CUDA {torch.version.cuda}  "
           f"device {torch.cuda.get_device_name(0)}  "
           f"count {torch.cuda.device_count()}")
@@ -529,6 +557,67 @@ def check_quantize(rep: Report, phi, y, xf, modes):
              4 * M * N + M * N // 2 + 4 * (M // 64) * (N // 64))
     rep.time("quantize_vec", lambda: quantize_vec_cuda(y, 4, 1, True),
              lambda: quantize_vec_plain(y, 4, 1, True), 4 * M + qbytes(M, 4))
+
+
+def edge_matrix(gen, m: int, n: int):
+    """A uniform (m, n) f32 matrix whose first tiles are the set-up
+    kernels' value edges: tile (0, 0) all zero (scale 1.0, codes 0), tile
+    (0, 1) every element on +-absmax (codes +-qmax in both nibbles), tile
+    (1, 0) nonzero subnormals only (qmax / s overflows to inf: codes
+    +-qmax), tile (1, 1) subnormals beside one normal absmax (a finite
+    multiplier on subnormal inputs)."""
+    import torch
+    a = torch.rand(m, n, generator=gen, device=gen.device) * 2 - 1
+    a[:64, :64] = 0.0
+    a[:64, 64:128] = torch.where(a[:64, 64:128] < 0, -2.5, 2.5)
+    sub = a[64:128, :128]
+    a[64:128, :128] = torch.where(sub < 0, -1.0, 1.0) * (0.5 + sub.abs() / 2
+                                                         ) * 1e-39
+    a[64, 100] = 3e-37
+    return a
+
+
+@contextlib.contextmanager
+def counters_forced(bits: int):
+    """csrc/quantize.cu's matrix kernel on ``bits``-bit Philox counters
+    whatever the shape (kernels/quantize.py counter_bits is the rule
+    otherwise)."""
+    from clover_tpu_torch.kernels import quantize as kq
+    rule = kq.counter_bits
+    kq.counter_bits = lambda m_pad, n_pad: bits
+    try:
+        yield
+    finally:
+        kq.counter_bits = rule
+
+
+def check_setup_edges(rep: Report, gen, modes):
+    """quantize_mat and the transposes at SETUP_EDGES on edge_matrix data,
+    det and SR, 4- and 8-bit, and quantize_mat on 64-bit counters (forced
+    at 384x640: an operand of 2^32 elements and its plain version do not
+    fit beside the rest): bit-identical to the plain versions."""
+    from clover_tpu_torch import kernels as kn
+    for m, n in SETUP_EDGES:
+        a = edge_matrix(gen, m, n)
+        for bits in (4, 8):
+            for mode, seed, noise in modes:
+                want = kn.quantize_mat_plain(a, bits, seed, noise)
+                rep.exact("quantize_mat", f"{m}x{n} edges {bits}-bit {mode}",
+                          kn.quantize_mat_cuda(a, bits, seed, noise), want,
+                          bits)
+                if (m, n) == SETUP_EDGES[1]:
+                    with counters_forced(64):
+                        rep.exact("quantize_mat", f"{m}x{n} edges {bits}-bit "
+                                  f"{mode} 64-bit counters",
+                                  kn.quantize_mat_cuda(a, bits, seed, noise),
+                                  want, bits)
+            codes, scales = want
+            st = scales.T.contiguous()
+            cuda, plain = ((kn.transpose4_cuda, kn.transpose4_plain)
+                           if bits == 4 else
+                           (kn.transpose8_cuda, kn.transpose8_plain))
+            rep.exact(f"transpose{bits}", f"{m}x{n} edges (+-qmax, 0)",
+                      (cuda(codes), st), (plain(codes), st), bits)
 
 
 def check_transpose(rep: Report, qphi):
@@ -1248,11 +1337,13 @@ def without_host_sync(fn, what: str):
 
 
 def check_probes(rep: Report, qphi, gen):
-    """dma_probe and salted_probe against their plain versions (bit for
-    bit: an int32 band sum plus the salt) on the 4- and 8-bit 8192x16384
-    codes, a ragged 200x300 and the 512 MB stack; dma_probe_stream's p and
-    bytes; the launch probe; times over the 4-bit codes (dma_probe, the
-    Phi leg's stream) and their 512 MB stack (salted_probe)."""
+    """dma_probe_cluster, dma_probe and salted_probe against their plain
+    versions (bit for bit: an int32 band sum plus the salt) on the 4- and
+    8-bit 8192x16384 codes and a ragged 200x300, the cluster probe also at
+    MVM_EDGES and 2048x4096, the others on the 512 MB stack;
+    dma_probe_stream's p and bytes; the launch probe; times over the 4-bit
+    codes (the two dma probes, the Phi leg's stream) and their 512 MB stack
+    (salted_probe)."""
     import torch
     import clover_tpu_torch as tt
     from clover_tpu_torch.kernels import probes as pr
@@ -1264,6 +1355,15 @@ def check_probes(rep: Report, qphi, gen):
               for b in (4, 8)]
     q = qphi[4]
     stacked, p = pr.stacked_codes(q)
+    # the cluster probe also at the MVM's edge shapes (one band, 10 bands:
+    # clusters of 8, 4 and 2 CTAs by csrc/mvm.cu's rule) and the large-n
+    # leg's 2048 rows
+    cluster_cases = [(f"{m}x{n} 4-bit", tt.quantize(
+        torch.rand(m, n, generator=gen, device=dev) * 2 - 1, 4).codes)
+        for m, n in (*MVM_EDGES, (2048, 4096))]
+    for what, codes in cases + cluster_cases:
+        rep.exact("dma_probe_cluster", what, pr.dma_probe_cluster_cuda(codes),
+                  pr.dma_probe_cluster_plain(codes))
     for what, codes in cases + [(f"{p} x {M}x{N} 4-bit stacked", stacked)]:
         rep.exact("dma_probe", what, pr.dma_probe_cuda(codes),
                   pr.dma_probe_plain(codes))
@@ -1284,6 +1384,9 @@ def check_probes(rep: Report, qphi, gen):
     print(f"  probes        dma_probe_stream: p = {p_stream}, {nbytes} bytes "
           f"stacked; " + ", ".join(f"{k} -> {v:.7g}" for k, v in
                                    ends.items()))
+    rep.time("dma_probe_cluster", lambda: pr.dma_probe_cluster_cuda(q.codes),
+             lambda: pr.dma_probe_cluster_plain(q.codes),
+             q.codes.nbytes + 4 * (M // 64))
     rep.time("dma_probe", lambda: pr.dma_probe_cuda(q.codes),
              lambda: pr.dma_probe_plain(q.codes),
              q.codes.nbytes + 4 * (M // 64))
@@ -1383,6 +1486,7 @@ def phase_kernels(rep: Report, phi, mats, gen):
     check_restore(rep, y, xf, gen)
     qphi = {bits: tt.quantize(phi, bits) for bits in (4, 8)}
     phit = check_transpose(rep, qphi)
+    check_setup_edges(rep, gen, modes)
     qy = {bits: tt.quantize(y, bits) for bits in (4, 8)}
     qx = {bits: tt.quantize(xf, bits) for bits in (4, 8)}
     iterates = check_mvm(rep, qphi, phit, qy, qx, modes)
@@ -1436,6 +1540,27 @@ def timed_solve(qphi, qphit, qy, iters, mu, xs) -> tuple[float, float]:
     end.synchronize()
     wall = time.perf_counter() - t0
     return wall * 1e3 / TIMED_ITERS, start.elapsed_time(end) / TIMED_ITERS
+
+
+def whole_solve_ms(phi, y, name: str, runs: int = WHOLE_SOLVES) -> float:
+    """Median host-clock ms of configuration ``name``'s whole untraced
+    solve, from quantize(Phi) to the result (a synchronize), over ``runs``
+    runs after a warm-up: the set-up kernels and the iterations."""
+    import statistics
+    import torch
+    import clover_tpu_torch as tt
+    bits_a, bits_v, iters, mu, _ = config(name)
+    times = []
+    for _ in range(runs + 1):
+        gen = torch.Generator(device=phi.device).manual_seed(SEED + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qphi = tt.quantize(phi, bits_a, generator=gen)
+        qy = tt.quantize(y, bits_v, generator=gen)
+        tt.iht(qphi, tt.transpose(qphi), qy, iters, K, mu)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
 
 
 def phase_main_path(rep: Report, name: str, phi, x_star, y):
@@ -1494,6 +1619,15 @@ def phase_main_path(rep: Report, name: str, phi, x_star, y):
               f"events {dev_ms:.4f} ms/iteration); kernels {kern:.4f} ms "
               f"per iteration (phase 2 medians): device busy "
               f"~{kern / host_ms:.2f} of the loop")
+    if not traced:
+        whole = whole_solve_ms(phi, y, name)
+        setup = (rep.ms["quantize_mat"] + rep.ms["quantize_vec"]
+                 + rep.ms[f"transpose{bits_a}"])
+        print(f"  whole solve, quantize(Phi) to the result: {whole:.4f} ms "
+              f"(host clock, median of {WHOLE_SOLVES}); its kernels: set-up "
+              f"{setup:.4f} ms (quantize_mat, quantize_vec, transpose"
+              f"{bits_a}) + {iters} iterations x {busy:.4f} ms (phase 2 "
+              f"medians)")
     return counts
 
 
@@ -2101,7 +2235,8 @@ def perf_quick_rows() -> list[str]:
         rows.append(f"mvm 32-bit (matmul) n={n}")
         for ba, bxs in ((4, (4, 8)), (8, (8,)), (16, (16,))):
             if ba < 16:
-                rows += [f"dma probe {ba}-bit n={n}",
+                rows += [f"dma probe cluster {ba}-bit n={n}",
+                         f"dma probe {ba}-bit n={n}",
                          f"dma probe stream {ba}-bit n={n}"]
             rows += [f"mvm {ba:2d}x{bx:2d}-bit n={n}" for bx in bxs]
     rows += [f"transpose {b:2d}-bit n={n}" for n in mvm
@@ -2158,9 +2293,13 @@ def phase_perf():
                   if name.startswith("mvm ") and "matmul" not in name
                   else None)
         if bits_a in ("4", "8") and (
-                floor is None or f"of the {bits_a}-bit probe floor" not in
-                floor):
+                floor is None or f"of the {bits_a}-bit cluster probe floor"
+                not in floor):
             raise AssertionError(f"-p row {name!r}: no probe floor line")
+        if floor is not None and float(floor.split("%")[0].split()[-1]) > \
+                FLOOR_SHARE_MAX:
+            raise AssertionError(f"-p row {name!r} above its floor: "
+                                 f"{floor.strip()}")
     floors = sum("probe floor" in line for line in lines)
     if floors != 6 or not any(line.startswith("launch probe")
                               for line in lines):
@@ -2168,8 +2307,9 @@ def phase_perf():
                              f"or no launch probe line")
     idle = [k for k in PERF_KERNELS if counts[k] == 0]
     print(f"  -p --quick: {len(rates)} rows, exit 0, every row that is not "
-          f"L2-warm at or below 100% of spec, {floors} MVM rows against the "
-          f"probe floor; wall {wall:.2f} s")
+          f"L2-warm at or below 100% of spec, {floors} MVM rows at or below "
+          f"{FLOOR_SHARE_MAX:.0f}% of the cluster probe floor; wall "
+          f"{wall:.2f} s")
     print(f"  launches {counts}")
     if idle:
         raise AssertionError(f"-p launched no {idle} kernel")

@@ -40,6 +40,15 @@ __device__ __forceinline__ int8_t pack_byte(int lo, int hi) {
 __device__ __forceinline__ int low_code(int byte) { return (byte & 15) - 8; }
 __device__ __forceinline__ int high_code(int byte) { return byte >> 4; }
 
+// A 16-byte copy from device to shared memory that bypasses L1
+// (cp.async.cg); it lands after cp.async.wait_group / wait_all.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+               "l"(gmem)
+               : "memory");
+}
+
 // Loads of data that another CTA of the same cooperative launch wrote
 // before a grid barrier (iteration.cu): ld.global.cg reads L2, so no SM
 // sees a stale L1 line of an earlier iteration, and the volatile asm with

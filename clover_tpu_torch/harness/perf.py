@@ -20,12 +20,13 @@ thresholds at n <= 2^20 -- say "L2-warm" in their name and give no %spec.
 Any other row above 100% of spec raises: it would be reading a cache.
 
 The fused MVM rows sit beside the probe floor (``kernels/probes.py``): the
-dma probe streams the same matrices through one CTA per 64-row band (the
-layout of the whole-iteration kernels, and the MVM's before it split a
-band over a cluster of CTAs), and each 4/8-bit MVM row prints its rate as
-a share of that floor, measured in the same run, as bench.py reports its
-headline against the TPU's probe.  The MVM keeps more loads in flight than
-that layout, so a share above 100% is no error.
+cluster dma probe streams the same matrices through the fused MVM's own
+launch geometry (a band over a cluster of CTAs, its rows per warp, its
+ring of loads), and each 4/8-bit MVM row prints its rate as a share of
+that floor, measured in the same run, as bench.py reports its headline
+against the TPU's probe.  The dma probe of one CTA per 64-row band (the
+whole-iteration kernels' layout) and the 512 MB salted stream print
+beside it.
 The fp32 baselines are torch calls (cuBLAS for the MVM) in IEEE fp32.
 """
 
@@ -297,14 +298,18 @@ def bench_get(log, n=GET[0], r=GET[1], device="cuda"):
 
 
 def _probe_rows(log, n: int, q, p: int, device) -> float:
-    """The probe floor of matrix q: the dma probe over the p copies the
-    MVM rows rotate through (the same layout and bytes), and the salted
-    probe over q's codes stacked to RING_BYTES, one launch per time;
-    -> the dma probe's bytes/s."""
+    """The probe floors of matrix q: the cluster dma probe (the fused
+    MVM's geometry) and the dma probe (one CTA per band) over the p copies
+    the MVM rows rotate through (the same bytes), and the salted probe over
+    q's codes stacked to RING_BYTES, one launch per time; -> the cluster
+    dma probe's bytes/s, the MVM's floor."""
     ring = _copies(q.codes, p)
+    dc = _ring_time(device, p, lambda j: probes.dma_probe_cluster(ring[j]))
     dt = _ring_time(device, p, lambda j: probes.dma_probe(ring[j]))
     del ring
     nbytes = q.codes.nbytes
+    _row(log, f"dma probe cluster {q.bits}-bit n={n}", nbytes, dc,
+         device=device)
     _row(log, f"dma probe {q.bits}-bit n={n}", nbytes, dt, device=device)
     stacked, slabs = probes.stacked_codes(q, RING_BYTES if _cuda(device)
                                           else 0)
@@ -313,7 +318,7 @@ def _probe_rows(log, n: int, q, p: int, device) -> float:
     del stacked
     _row(log, f"dma probe stream {q.bits}-bit n={n}", nbytes, ds / slabs,
          device=device)
-    return nbytes / dt
+    return nbytes / dc
 
 
 def bench_mvm(log, sizes=MVM_SIZES, device="cuda"):
@@ -348,7 +353,8 @@ def bench_mvm(log, sizes=MVM_SIZES, device="cuda"):
                 if floor:
                     log(f"{'':{NAME_WIDTH}s} -> "
                         f"{100.0 * qA.nbytes / dt / floor:5.1f}% of the "
-                        f"{ba}-bit probe floor ({floor / 1e9:.1f} GB/s)")
+                        f"{ba}-bit cluster probe floor "
+                        f"({floor / 1e9:.1f} GB/s)")
             del slot
         del A
 

@@ -24,7 +24,8 @@ from .mvm_batched import (
     mvm_batched_plain,
 )
 from .probes import (
-    dma_probe_cuda, dma_probe_plain, salted_probe_cuda, salted_probe_plain,
+    dma_probe_cluster_cuda, dma_probe_cluster_plain, dma_probe_cuda,
+    dma_probe_plain, salted_probe_cuda, salted_probe_plain,
 )
 from .quantize import (
     quantize_mat_cuda, quantize_mat_plain, quantize_vec_cuda,
@@ -61,6 +62,7 @@ KERNELS = {
     "hist4": hist4_cuda,
     "mask4": mask4_cuda,
     "dma_probe": dma_probe_cuda,
+    "dma_probe_cluster": dma_probe_cluster_cuda,
     "salted_probe": salted_probe_cuda,
     "mvm_f32": mvm_f32_cuda,
     "mvm_batched_f32": mvm_batched_f32_cuda,
@@ -98,5 +100,6 @@ __all__ = [
     "iteration_chain_cuda", "iteration_chain_plain",
     "iteration_chain_eligible",
     "dma_probe_cuda", "dma_probe_plain",
+    "dma_probe_cluster_cuda", "dma_probe_cluster_plain",
     "salted_probe_cuda", "salted_probe_plain",
 ]

@@ -33,7 +33,8 @@ _U32, _F32 = ctypes.c_uint32, ctypes.c_float
 # C entry points: argument types; every one returns a cudaError_t as int
 SIGNATURES = {
     "clover_quantize_vec": (_P, _P, _P, _I64, _I32, _I32, _U32, _P),
-    "clover_quantize_mat": (_P, _P, _P, _I64, _I64, _I32, _I32, _U32, _P),
+    "clover_quantize_mat": (_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _U32,
+                            _P),
     "clover_restore_vec": (_P, _P, _P, _I64, _I32, _P),
     "clover_restore_mat": (_P, _P, _P, _I64, _I64, _I32, _P),
     "clover_dot": (_P, _P, _P, _P, _P, _P, _I64, _I32, _P),
@@ -56,6 +57,7 @@ SIGNATURES = {
     "clover_iteration_chain": (*(_P,) * 15, _I64, _I64, _F32, _I64, _I32,
                                _I32, _I32, _P, _P, _I32, _P),
     "clover_dma_probe": (_P, _P, _I64, _I64, _P),
+    "clover_dma_probe_cluster": (_P, _P, _I64, _I64, _I32, _P),
     "clover_salted_probe": (_P, _P, _P, _I64, _I64, _P),
 }
 

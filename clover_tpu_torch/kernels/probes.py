@@ -1,14 +1,17 @@
 """Measurement probes (csrc/probes.cu) and their plain torch versions;
 never on a solver's path.
 
-Replaces clover_tpu/kernels/probes.py.  ``dma_probe`` streams a packed 4-
-or 8-bit matrix through one CTA per 64-row band of 8 warps x 8 rows, the
-layout of csrc/mvm.cuh mvm_band (the whole-iteration kernels' and the
-reference's), so its time is that geometry's streaming floor, which ``-p``
-reports beside the MVM: the MVM's rate as a share of this probe's,
-measured in the same run.  csrc/mvm.cu splits a band over a cluster of
-CTAs and keeps more loads in flight, so its share can pass 100%: that is
-no error.  ``salted_probe`` is the same stream with a small f32 salt input:
+Replaces clover_tpu/kernels/probes.py.  ``dma_probe_cluster`` streams a
+packed 4- or 8-bit matrix through the launch geometry of the fused MVM
+(csrc/mvm.cu): a 64-row band over a cluster of 8 / R CTAs, R rows a warp
+by kernels/mvm.py ``rows_per_warp``, each warp's
+rows through the MVM's ring of loads.  So its time is the streaming floor
+of the MVM's own geometry, as the reference's probe streams through "the
+SAME grid pipeline as the fused MVM kernel", and ``-p`` reports each MVM
+row as a share of it, measured in the same run.  ``dma_probe`` streams the
+same bytes through one CTA per 64-row band of 8 warps x 8 rows, the layout
+of csrc/mvm.cuh mvm_band: the floor of the whole-iteration kernels'
+geometry.  ``salted_probe`` is that stream with a small f32 salt input:
 ``dma_probe_stream`` runs it over a matrix stacked to at least 512 MB, so
 that it streams from device memory and not from the 50 MB L2 (the part the
 TPU's VMEM played for the reference), and ``launch_probe`` runs it over one
@@ -30,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, mvm
 from .dispatch import on_cuda
 
 RING_BYTES = 512 << 20        # the stacked stream's least size
@@ -45,6 +48,10 @@ def _band_sums(codes: torch.Tensor) -> torch.Tensor:
 
 
 def dma_probe_plain(codes: torch.Tensor) -> torch.Tensor:
+    return _band_sums(codes)
+
+
+def dma_probe_cluster_plain(codes: torch.Tensor) -> torch.Tensor:
     return _band_sums(codes)
 
 
@@ -74,6 +81,20 @@ def dma_probe_cuda(codes: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def dma_probe_cluster_cuda(codes: torch.Tensor) -> torch.Tensor:
+    """f32[rows / 64] band sums of int8 codes[rows, wa] on the card, in the
+    fused MVM's launch geometry: its rows per warp R over these rows
+    (kernels/mvm.py rows_per_warp), which csrc/probes.cu turns into the
+    MVM's grid and clusters of 8 / R CTAs."""
+    rows, wa = _check(codes)
+    r = mvm.rows_per_warp(rows, mvm._sm_count(codes.device.index))
+    out = torch.empty(rows // 64, dtype=torch.float32, device=codes.device)
+    _build.launch("clover_dma_probe_cluster", codes.device, _build.ptr(codes),
+                  _build.ptr(out), rows, wa, r)
+    dma_probe_cluster_cuda.launches += 1
+    return out
+
+
 def salted_probe_cuda(codes: torch.Tensor, salt: torch.Tensor
                       ) -> torch.Tensor:
     """salt[0] + the band sums of int8 codes[rows, wa] on the card."""
@@ -87,12 +108,18 @@ def salted_probe_cuda(codes: torch.Tensor, salt: torch.Tensor
 
 
 dma_probe_cuda.launches = 0
+dma_probe_cluster_cuda.launches = 0
 salted_probe_cuda.launches = 0
 
 
 def dma_probe(codes: torch.Tensor) -> torch.Tensor:
     """The kernel on a CUDA tensor, its plain version on a CPU one."""
     return (dma_probe_cuda if on_cuda(codes) else dma_probe_plain)(codes)
+
+
+def dma_probe_cluster(codes: torch.Tensor) -> torch.Tensor:
+    fn = dma_probe_cluster_cuda if on_cuda(codes) else dma_probe_cluster_plain
+    return fn(codes)
 
 
 def salted_probe(codes: torch.Tensor, salt: torch.Tensor) -> torch.Tensor:

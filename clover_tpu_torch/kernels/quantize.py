@@ -65,6 +65,13 @@ def quantize_vec_cuda(xp: torch.Tensor, bits: int, seed: int = 0,
     return codes, scales
 
 
+def counter_bits(m_pad: int, n_pad: int) -> int:
+    """Width of the Philox element counter csrc/quantize.cu's matrix kernel
+    forms: 32 bits below 2^32 elements (counter word 1 is then 0), else
+    64.  Both give the same noise where both apply."""
+    return 32 if m_pad * n_pad < 1 << 32 else 64
+
+
 def quantize_mat_cuda(ap: torch.Tensor, bits: int, seed: int = 0,
                       noise: bool = False):
     """Kernel form of :func:`quantize_mat_plain`."""
@@ -79,7 +86,8 @@ def quantize_mat_cuda(ap: torch.Tensor, bits: int, seed: int = 0,
                          device=ap.device)
     _build.launch("clover_quantize_mat", ap.device, _build.ptr(ap),
                   _build.ptr(codes), _build.ptr(scales), m_pad, n_pad, bits,
-                  int(noise), seed & 0xFFFFFFFF)
+                  int(noise), int(counter_bits(m_pad, n_pad) == 64),
+                  seed & 0xFFFFFFFF)
     quantize_mat_cuda.launches += 1
     return codes, scales
 

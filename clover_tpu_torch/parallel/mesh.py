@@ -18,25 +18,31 @@ the MVM dataflow:
 Every rank holds the full container (as clover_tpu's multi-process ``_put``
 assumes) and keeps its own block: :func:`shard_matrix` and
 :func:`shard_vector` return that block as a local container on the rank's
-device, whose sides are the block's padded sides, with the global logical
-sizes beside it.  Every shard boundary falls on a 64-element block (64x64
-tile) boundary, so no block scale straddles two shards, and every shard's
-side is a multiple of 128 (clover_tpu asks 64): the requant, AXPY, restore
-and threshold kernels a shard's vectors meet take sides padded to 128, as
-every container of the port has.  Only the MVM's f32-output modes take a
-64-block side, for :func:`~clover_tpu_torch.parallel.ops.mvm_psum_overlapped`'s
+device, whose logical sides are the block's, with the global logical sizes
+beside it.  Every shard boundary falls on a 64-element block (64x64 tile)
+boundary, so no block scale straddles two shards; each shard side must be
+a multiple of 64, as clover_tpu asks.  The requant, AXPY, restore and
+threshold kernels a shard's vectors meet take sides padded to 128, as every
+container of the port has, so a side that is an odd multiple of 64 is held
+padded to 128 with the quantizer's pad (zero codes, scales 1.0): the pad
+adds exact zeros to every sum and is dropped again by
+:func:`gather_vector`.  Only the MVM's f32-output modes take a 64-block
+side, for :func:`~clover_tpu_torch.parallel.ops.mvm_psum_overlapped`'s
 column chunks.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
-from ..formats import BLOCK, PAD, QMat16, QMat32, QVec16, QVec32, to_device
+from ..formats import (
+    BLOCK, PAD, QMat16, QMat32, QVec16, QVec32, pad_to, to_device,
+)
 
 ROW, COL = "row", "col"
 
@@ -87,9 +93,35 @@ def axis_index(mesh, axis: str) -> int:
 
 
 def _check(dim: int, parts: int, what: str):
-    if dim % (parts * PAD):
+    if dim % (parts * BLOCK):
         raise ValueError(f"{what}={dim} must be divisible by {parts} shards "
-                         f"x {PAD}")
+                         f"x {BLOCK}")
+
+
+def _grow(t: torch.Tensor, shape: tuple, fill) -> torch.Tensor:
+    """``t`` in the leading corner of a tensor whose last dims are
+    ``shape``, the rest ``fill``."""
+    lead = t.shape[:t.dim() - len(shape)]
+    out = torch.full((*lead, *shape), fill, dtype=t.dtype, device=t.device)
+    out[(..., *(slice(0, w) for w in t.shape[len(lead):]))] = t
+    return out
+
+
+def padded(q):
+    """A block container (sides multiples of 64) with each side padded to
+    PAD as the quantizers pad: zero codes (byte 0x08 of packed 4-bit,
+    whose low nibble is biased) and scales 1.0; ``q`` itself when its sides
+    are multiples of PAD already.  The logical sides stay the block's."""
+    sides = (q.length,) if hasattr(q, "length") else (q.rows, q.cols)
+    if all(w % PAD == 0 for w in sides):
+        return q
+    full = tuple(pad_to(w) for w in sides)
+    if isinstance(q, (QMat16, QMat32, QVec16, QVec32)):
+        return dataclasses.replace(q, values=_grow(q.values, full, 0))
+    wide = (*full[:-1], full[-1] * q.bits // 8)
+    return dataclasses.replace(
+        q, codes=_grow(q.codes, wide, 0x08 if q.bits == 4 else 0),
+        scales=_grow(q.scales, tuple(w // BLOCK for w in full), 1.0))
 
 
 def mat_block(q, r0: int, r1: int, c0: int, c1: int):
@@ -129,7 +161,7 @@ def shard_matrix(qA, mesh, transposed: bool = False) -> ShardedMatrix:
     _check(qA.cols_pad, c_parts, "cols")
     rl, cl = qA.rows_pad // r_parts, qA.cols_pad // c_parts
     r, c = axis_index(mesh, first), axis_index(mesh, second)
-    local = mat_block(qA, r * rl, (r + 1) * rl, c * cl, (c + 1) * cl)
+    local = padded(mat_block(qA, r * rl, (r + 1) * rl, c * cl, (c + 1) * cl))
     return ShardedMatrix(to_device(local, local_device()), qA.rows, qA.cols)
 
 
@@ -140,8 +172,9 @@ def shard_vector(qx, mesh, axis: str) -> ShardedVector:
     parts = axis_size(mesh, axis)
     _check(qx.length_pad, parts, "length")
     nl, i = qx.length_pad // parts, axis_index(mesh, axis)
-    return ShardedVector(to_device(vec_block(qx, i * nl, (i + 1) * nl),
-                             local_device()), qx.length)
+    return ShardedVector(to_device(padded(vec_block(qx, i * nl,
+                                                    (i + 1) * nl)),
+                                   local_device()), qx.length)
 
 
 def gather(tensors, mesh, axis: str) -> list[torch.Tensor]:
@@ -169,12 +202,16 @@ def gather(tensors, mesh, axis: str) -> list[torch.Tensor]:
 
 def gather_vector(x_local, mesh, axis: str, length: int):
     """The full vector container, on every rank, from each rank's block
-    along ``axis`` (the inverse of :func:`shard_vector`); a stacked
-    container gathers each of its vectors."""
-    names = ("values",) if isinstance(x_local, (QVec16, QVec32)) \
-        else ("codes", "scales")
-    parts = gather([getattr(x_local, f) for f in names], mesh, axis)
+    along ``axis`` (the inverse of :func:`shard_vector`), each block cut
+    to its logical length (a block held :func:`padded` drops its pad); a
+    stacked container gathers each of its vectors."""
+    nl = x_local.length
+    if isinstance(x_local, (QVec16, QVec32)):
+        widths = {"values": nl}
+    else:
+        widths = {"codes": nl * x_local.bits // 8, "scales": nl // BLOCK}
+    parts = gather([getattr(x_local, f) for f in widths], mesh, axis)
     # (parts, *lead, w) -> (*lead, parts * w)
-    full = {f: torch.movedim(p, 0, -2).reshape(*p.shape[1:-1], -1)
-            for f, p in zip(names, parts)}
+    full = {f: torch.movedim(p[..., :widths[f]], 0, -2)
+            .reshape(*p.shape[1:-1], -1) for f, p in zip(widths, parts)}
     return type(x_local)(length=length, **full)

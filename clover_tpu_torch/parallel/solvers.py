@@ -26,7 +26,7 @@ import dataclasses
 
 import torch
 
-from ..formats import QVec32, zeros_vector
+from ..formats import QVec32, pad_vector, zeros_vector
 from ..kernels.dispatch import SEED_GOLD, seed_from, wrap_i32
 from ..models.solvers import SolveResult, _op_seeds, _solve
 from ..ops.axpy import scale_and_add
@@ -55,13 +55,13 @@ def _solve_sharded(qphi, qphit, qy, x_bits: int, x_star, iterations: int, k,
                       zeros_vector(x_bits, n, device=dev), x_star,
                       iterations, k, mu, generator)
     phi, phit, y = qphi.local, qphit.local, qy.local
-    nl = phit.rows_pad
+    nl = phit.rows                      # this rank's block of x
     c = axis_index(mesh, COL)
     x = zeros_vector(x_bits, nl, device=dev)
     t_bits = _out_bits(phi, x)           # precision of t1/t2 (y's side)
     xs = xs_norm = None
     if x_star is not None:
-        xs = x_star.values[c * nl:(c + 1) * nl]
+        xs = pad_vector(x_star.values[c * nl:(c + 1) * nl])
         xs_norm = norm2_psum(xs, COL, mesh)
     seed0 = seed_from(generator)[0] if generator is not None else None
     errs = []

@@ -50,7 +50,8 @@ from .kernels.dispatch import seed_from
 from .ops.gemm import mvm_batched, mvm_batched_f32_fast
 from .ops.mvm import _out_bits
 from .parallel.mesh import (
-    COL, ROW, ShardedMatrix, axis_index, axis_size, gather_vector, vec_block,
+    COL, ROW, ShardedMatrix, axis_index, axis_size, gather_vector, padded,
+    vec_block,
 )
 from .parallel.multihost import local_device
 from .parallel.ops import _psum, _requant_batched, axis_key
@@ -188,7 +189,7 @@ class MVMServer:
     # -- sharded path ------------------------------------------------------
 
     def _n_pad(self) -> int:
-        return self._qA.local.cols_pad * axis_size(self._mesh, COL)
+        return self._qA.local.cols * axis_size(self._mesh, COL)
 
     def _admit(self, batch) -> list:
         """The requests of ``batch`` that fit the sharded matrix; each
@@ -262,9 +263,9 @@ class MVMServer:
         step failed on any (after the psum every rank holds the same sums,
         so the requant and the gather fail everywhere or nowhere)."""
         mesh, qA = self._mesh, self._qA
-        nl = qA.local.cols_pad
+        nl = qA.local.cols
         c = axis_index(mesh, COL)
-        xs_l = vec_block(xs, c * nl, (c + 1) * nl)
+        xs_l = padded(vec_block(xs, c * nl, (c + 1) * nl))
         rank, err = dist.get_rank(), None
         try:
             part = mvm_batched_f32_fast(qA.local, xs_l)

@@ -1,5 +1,5 @@
-"""Time the MVM legs, the thresholds and the iteration kernels of two
-checkouts of clover_tpu_torch on one card.
+"""Time the MVM legs, the set-up kernels, the thresholds and the iteration
+kernels of two checkouts of clover_tpu_torch on one card.
 
     python3 kernel_ab.py OTHER_TREE
     python3 kernel_ab.py --sass OTHER_TREE
@@ -11,14 +11,16 @@ fresh process that builds its own tree's kernels and times both legs of
 the 8192x16384 IHT for mvm4 (4x4) and mvm8 (4x8, 8x8), both legs of the
 2048x524288 4-bit IHT (chip_smoke.py's phase 10), the f32-output MVM on a
 4096x4096 block (a 2x4 shard of the 8192x16384 matrix, through a ring of
-copies past the 50 MB L2), the exact thresholds (csrc/threshold.cu: 4-
+copies past the 50 MB L2), the main path's set-up kernels at 8192x16384
+(csrc/quantize.cu quantize_mat, 4- and 8-bit, det and SR;
+csrc/transpose.cu, 4- and 8-bit), the exact thresholds (csrc/threshold.cu: 4-
 and 8-bit at the main path's n = 16384, K = 4096, single and stacked B =
 8, and the 4-bit radix select at n = 2^19, K = 64), the whole-iteration
 and chained (4 iterations) kernels of the 4096x8192 IHT, 4x4 and 4x8, SR
 on, and the batched MVM
 (csrc/mvm_batched.cu: 4x4, 4x8 and 8x8 at 8192x16384 with B = 8, 4x4 at
 16384x16384 with B = 2, 8 and 32, SR on; the f32-output mode, 4x4 at
-8192x16384 with B = 8), each threshold, iteration and batched leg first
+8192x16384 with B = 8), each set-up, threshold, iteration and batched leg first
 held bit for bit to its plain version, as chip_smoke.py's phase 2 does:
 the median of 5 windows
 of 20 back-to-back launches queued behind a spin kernel.  It also times
@@ -35,10 +37,13 @@ geometry kernels/mvm.py rows_per_warp picks.
 
 With ``--e2e`` it runs each tree's own chip_smoke.py phases, each run a
 fresh process: E2E_ROUNDS rounds of A, B, B, A runs of phase 3's
-untraced 4-bit 8192x16384 solve (iterations/s), phase 5 (the batched
+untraced 4-bit 8192x16384 solve (iterations/s, the wall ms of 5 whole
+solves from quantize(Phi) to the result, set-up included, and one whole
+solve's device ms by torch.profiler), phase 5 (the batched
 IHT, and its device time per batched iteration by torch.profiler), phase
-6 (the MVMServer) and phase 7 (the small IHT: chained iterations/s at
-4096x8192 and 2048x4096, 4x4 and 4x8), then phase 14 (the sharded path
+6 (the MVMServer), phase 7 (the small IHT: chained iterations/s at
+4096x8192 and 2048x4096, 4x4 and 4x8) and phase 10 (the large-n 4-bit
+IHT, 2048x524288), then phase 14 (the sharded path
 on 8 ranks sharing the card) once in each tree, and prints each tree's
 median of every rate over its runs.  The batching and serving paths are
 host-bound where their kernels are fast, and one run of them spreads by
@@ -48,8 +53,10 @@ same kernels in both trees and show the host's drift.
 With ``--sass`` it times nothing: it builds both trees' libraries and
 compares the machine code (``cuobjdump -sass``) of every kernel, printing
 for each whether A's and B's instructions are the same, differ, or exist
-in one tree only, and for each kernel of B only its count of tensor-core
-(IMMA, IGMMA, HMMA) and IDP.4A instructions.
+in one tree only, and for each kernel whose code is not in both trees,
+in either tree, its count of tensor-core (IMMA, IGMMA, HMMA) and IDP.4A
+instructions, of all its instructions, and of those of its longest loop
+with their commonest opcodes (a persistent kernel's work per step).
 """
 
 from __future__ import annotations
@@ -85,6 +92,8 @@ E2E_RATES = {
     "phase 6 server 4x4": r"^  4x4: .* ([\d.]+) requests/s",
     "phase 6 server 4x8": r"^  4x8: .* ([\d.]+) requests/s",
     "phase 6 server 8x8": r"^  8x8: .* ([\d.]+) requests/s",
+    "phase 10 large-n IHT": r"^  10 untraced iterations: ([\d.]+) "
+                            r"iterations/s",
     "phase 14 sharded IHT": r"gloo: ([\d.]+) iterations/s",
     "phase 14 sharded server 4x4": r"MVMServer 4x4 .* ([\d.]+) requests/s",
 }
@@ -254,6 +263,27 @@ def iteration_legs(tt, kn, torch) -> dict:
     return out
 
 
+def setup_legs(tt, kn, torch) -> dict:
+    """Leg name -> (one launch of a main path's set-up kernel at 8192x16384:
+    quantize_mat, 4- and 8-bit, det and SR, and transpose4 and transpose8
+    of SR codes; its plain version), the operands made once, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    phi = torch.rand(M, N, generator=gen, device="cuda") * 2 - 1
+    out = {}
+    for bits in (4, 8):
+        for mode, noise in (("det", False), ("SR", True)):
+            args = (phi, bits, 1, noise)
+            out[f"quantize_mat {bits}-bit {mode}"] = (
+                functools.partial(kn.quantize_mat_cuda, *args),
+                functools.partial(kn.quantize_mat_plain, *args))
+        codes = kn.quantize_mat_cuda(phi, bits, 1, True)[0]
+        cuda, plain = ((kn.transpose4_cuda, kn.transpose4_plain) if bits == 4
+                       else (kn.transpose8_cuda, kn.transpose8_plain))
+        out[f"transpose{bits}"] = (functools.partial(cuda, codes),
+                                   functools.partial(plain, codes))
+    return out
+
+
 def same(got, want, torch) -> bool:
     """Kernel output equal to the plain one: (codes, scales), or f32 bits."""
     if isinstance(got, tuple):
@@ -297,7 +327,8 @@ def child(tree: str) -> None:
     out = {name: median_ms(call)
            for name, (call, _, _) in legs(tt, kn, torch).items()}
     torch.cuda.empty_cache()
-    checked = {**threshold_legs(tt, kn, torch),
+    checked = {**setup_legs(tt, kn, torch),
+               **threshold_legs(tt, kn, torch),
                **iteration_legs(tt, kn, torch),
                **batched_legs(tt, kn, torch)}
     for name, (call, plain) in checked.items():
@@ -379,6 +410,43 @@ def untraced_4bit(cs, phi, y) -> float:
     return 1e3 / host_ms
 
 
+def whole_solve_ms(cs, phi, y, runs: int = 5) -> list:
+    """Host-clock ms of each of ``runs`` whole untraced 4-bit solves of
+    phase 3, from quantize(Phi) to the result (a synchronize), after a
+    warm-up: the set-up kernels and the tuned iterations."""
+    import torch
+    import clover_tpu_torch as tt
+    bits_a, bits_v, iters, mu, _ = cs.config("4")
+    times = []
+    for _ in range(runs + 1):
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qphi = tt.quantize(phi, bits_a, generator=gen)
+        qy = tt.quantize(y, bits_v, generator=gen)
+        tt.iht(qphi, tt.transpose(qphi), qy, iters, cs.K, mu)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times[1:]
+
+
+def whole_solve_device_ms(cs, phi, y) -> float:
+    """Device time (kernels and copies, torch.profiler) of one whole
+    untraced 4-bit solve of phase 3, from quantize(Phi) to the result,
+    after a warm-up: what the card spends, whatever the host adds."""
+    import torch
+    whole_solve_ms(cs, phi, y, 1)
+    torch.cuda.synchronize()
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        whole_solve_ms(cs, phi, y, 0)
+    us = 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        us += e.self_cuda_time_total if t is None else t
+    return us / 1e3
+
+
 def small_rates(text: str) -> dict:
     """Phase 7's chained iterations/s by mode and size."""
     rates, head = {}, None
@@ -393,9 +461,10 @@ def small_rates(text: str) -> dict:
 
 
 def e2e_child(tree: str, sharded: bool) -> None:
-    """Run ``tree``'s chip_smoke.py phases 3 (the untraced 4-bit solve), 5,
-    6 and 7 once (or, ``sharded``, phase 14) and time the batched IHT's
-    device work; print one JSON line of the rates each phase printed."""
+    """Run ``tree``'s chip_smoke.py phases 3 (the untraced 4-bit solve and
+    its whole solves), 5, 6, 7 and 10 once (or, ``sharded``, phase 14) and
+    time the batched IHT's device work; print one JSON line of the rates
+    each phase printed."""
     import contextlib
     import io
     sys.path[0] = tree
@@ -414,6 +483,9 @@ def e2e_child(tree: str, sharded: bool) -> None:
             phi, _, y = make_iht_problem(cs.M, cs.N, cs.K, generator=gen)
             mats = cs.serving_matrices(gen)
             extra["phase 3 untraced 4-bit"] = [untraced_4bit(cs, phi, y)]
+            extra["phase 3 whole solve ms"] = whole_solve_ms(cs, phi, y)
+            extra["phase 3 whole solve device ms"] = [
+                whole_solve_device_ms(cs, phi, y)]
             cs.phase_batched_iht(phi)
             cs.phase_server(mats, gen)
             extra["phase 5 device ms per batched iteration"] = [
@@ -424,6 +496,7 @@ def e2e_child(tree: str, sharded: bool) -> None:
             with contextlib.redirect_stdout(small):
                 cs.phase_small_iht()
             extra.update(small_rates(small.getvalue()))
+            cs.phase_large_iht(cs.Report())
     rates = {name: [float(v) for v in re.findall(pattern, out.getvalue(),
                                                  re.MULTILINE)]
              for name, pattern in E2E_RATES.items()}
@@ -432,9 +505,9 @@ def e2e_child(tree: str, sharded: bool) -> None:
 
 
 def e2e(trees: dict) -> None:
-    """E2E_ROUNDS rounds of A, B, B, A runs of e2e_child (phases 3, 5, 6
-    and 7), then phase 14 once in A and in B; each tree's median of every
-    rate."""
+    """E2E_ROUNDS rounds of A, B, B, A runs of e2e_child (phases 3, 5, 6,
+    7 and 10), then phase 14 once in A and in B; each tree's median of
+    every rate."""
     import statistics
     runs = {"A": {}, "B": {}}
     order = [(label, False) for _ in range(E2E_ROUNDS) for label in "ABBA"]
@@ -499,6 +572,32 @@ def sass(tree: str) -> dict:
     return bodies
 
 
+def count_instructions(body: list) -> int:
+    return sum(1 for x in body if re.match(r"/\*[0-9a-f]+\*/", x))
+
+
+def opcode(line: str) -> str:
+    """The opcode of an instruction line (its predicate and modifiers
+    dropped)."""
+    found = re.match(r"/\*[0-9a-f]+\*/ (?:@!?U?P\w+ )?([A-Z0-9_]+)", line)
+    return found.group(1) if found else ""
+
+
+def longest_loop(body: list) -> list:
+    """The instructions from the target of a backward branch to the branch,
+    of the longest such span in a kernel's body (none when no branch goes
+    back): a persistent kernel's per-tile work."""
+    lines = [(int(m.group(1), 16), x) for x in body
+             if (m := re.match(r"/\*([0-9a-f]+)\*/", x))]
+    longest = []
+    for at, x in lines:
+        found = re.match(r"/\*[0-9a-f]+\*/.*\bBRA\b.*?0x([0-9a-f]+)", x)
+        if found and int(found.group(1), 16) < at:
+            span = [y for a, y in lines if int(found.group(1), 16) <= a <= at]
+            longest = max(longest, span, key=len)
+    return longest
+
+
 def digest(body: list) -> tuple:
     return hashlib.sha256("\n".join(body).encode()).hexdigest()[:16], \
         len(body)
@@ -552,12 +651,21 @@ def compare_sass(trees: dict) -> None:
             show_diff(bodies_a[name], nearest, bodies_b[nearest])
     print(f"{sum(tally.values())} kernels: " + ", ".join(
         f"{n} {v}" for v, n in sorted(tally.items())))
-    for name in sorted(set(b) - set(a)):
-        mix = {op: sum(1 for x in bodies_b[name]
+    for tree, name, body in (
+            [("B", k, bodies_b[k]) for k in sorted(b) if bodies_a.get(k)
+             != bodies_b[k]]
+            + [("A", k, bodies_a[k]) for k in sorted(a) if bodies_b.get(k)
+               != bodies_a[k]]):
+        mix = {op: sum(1 for x in body
                        if re.search(rf"\b{re.escape(op)}\b", x))
                for op in MIX}
-        print(f"B's {name}: " + ", ".join(f"{op} {n}" for op, n in
-                                         mix.items()))
+        loop = [opcode(x) for x in longest_loop(body)]
+        top = sorted(((loop.count(op), op) for op in set(loop)),
+                     reverse=True)[:12]
+        print(f"{tree}'s {name}: " + ", ".join(f"{op} {n}" for op, n in
+                                              mix.items())
+              + f"; {count_instructions(body)} instructions, the longest "
+              f"loop {len(loop)}: " + " ".join(f"{op} {n}" for n, op in top))
 
 
 def card() -> str:

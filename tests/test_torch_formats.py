@@ -185,7 +185,7 @@ def test_build_finds_sources_and_refuses_without_nvcc(monkeypatch, tmp_path):
         "clover_iteration_occupancy",
         "clover_iteration", "clover_iteration_chain", "clover_restore_mat",
         "clover_dot", "clover_hist4", "clover_mask4", "clover_dma_probe",
-        "clover_salted_probe"}
+        "clover_dma_probe_cluster", "clover_salted_probe"}
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):

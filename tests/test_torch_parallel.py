@@ -110,10 +110,11 @@ def _trajectory_rules(tp, ts):
 
 
 @cache
-def _jax_sharded_trace(kind, ba, bx, shape):
-    """clover_tpu's sharded trace of one configuration (its dry run's)."""
+def _jax_sharded_trace(kind, ba, bx, shape, size=None):
+    """clover_tpu's sharded trace of one configuration (its dry run's, or
+    at ``size``)."""
     mesh = jax_make_mesh(shape=shape)
-    m, n = W.solve_sizes(shape)
+    m, n = size or W.solve_sizes(shape)
     phi, x_star, y = W.solve_problem(m, n)
     qphi = ct.quantize(jnp.asarray(phi), ba)
     qphit = ct.transpose(qphi)
@@ -156,6 +157,26 @@ def test_sharded_solve_matches(ranks, jax_mesh, kind, ba, bx, shape):
         x = tt.formats.VECTOR_TYPES[bx](codes=got["codes"],
                                         scales=got["scales"], length=1)
         assert np.count_nonzero(element_codes(x)) <= W.K
+
+
+def test_sharded_solve_odd_shards(ranks, jax_mesh):
+    """A 128x1024 IHT on the 2x4 mesh, whose Phi row shards (and y's) are
+    64 long, held padded to 128: the trace replicated on every rank and
+    within the regime rules of the single solve and clover_tpu's sharded
+    trace, at most K kept."""
+    (kind, ba, bx), shape = W.ODD_SOLVES[0], W.MESHES[0]
+    name = W.solve_name(kind, ba, bx, shape, W.ODD_SIZE)
+    got = ranks[0][name]
+    tp = got["trace"].numpy()
+    for r in range(1, WORLD):
+        np.testing.assert_array_equal(ranks[r][name]["trace"].numpy(), tp)
+    _trajectory_rules(tp, got["single_trace"].numpy())
+    _trajectory_rules(tp, _jax_sharded_trace(kind, ba, bx, shape,
+                                             W.ODD_SIZE))
+    x = tt.formats.VECTOR_TYPES[bx](codes=got["codes"], scales=got["scales"],
+                                    length=1)
+    assert x.codes.shape == (W.ODD_SIZE[1] // 2,)
+    assert np.count_nonzero(element_codes(x)) <= W.K
 
 
 def _want_integer_psum():
@@ -342,15 +363,71 @@ def test_axis_key_matches_reference(jax_mesh, seed):
     assert pops.axis_key(None, par.COL, _Stub((1, 8), (0, 3))) is None
 
 
-def test_shard_refuses_unaligned_blocks():
-    """Shard sides must be multiples of 128, the padding of every vector
-    kernel a shard meets (clover_tpu asks 64)."""
-    q = tt.quantize(torch.zeros(128, 1024), 4)
-    with pytest.raises(ValueError, match="divisible"):
-        par.shard_matrix(q, _Stub((2, 4), (0, 0)))
-    with pytest.raises(ValueError, match="divisible"):
-        par.shard_vector(tt.quantize(torch.zeros(384), 4),
-                         _Stub((2, 4), (0, 0)), par.COL)
+def _jax_shards(arr, mesh) -> dict:
+    """clover_tpu's shard of ``arr`` at each mesh position (r, c)."""
+    where = {d: rc for rc, d in np.ndenumerate(mesh.devices)}
+    return {where[s.device]: np.asarray(s.data)
+            for s in arr.addressable_shards}
+
+
+@pytest.mark.parametrize("case", ["matrix 4", "matrix 8", "vector 4",
+                                  "not a multiple of 64"])
+def test_shard_refuses_unaligned_blocks(jax_mesh, monkeypatch, case):
+    """Shard sides must be multiples of 64, as clover_tpu asks.  A side
+    that is an odd multiple of 64 (a 128x1024 matrix's row shards on a 2x4
+    mesh, its 128-long y's) is held padded to 128: the block equal to
+    clover_tpu's shard at every position, zero codes and scales 1.0 in the
+    pad, the logical sides the block's.  A side of 96 is refused by both."""
+    from clover_tpu_torch.parallel import multihost
+    monkeypatch.setattr(multihost, "local_device",
+                        lambda: torch.device("cpu"))
+    mesh = jax_make_mesh(shape=(2, 4))
+    if case == "not a multiple of 64":
+        q = tt.quantize(torch.zeros(384), 4)
+        with pytest.raises(ValueError, match="divisible"):
+            par.shard_vector(q, _Stub((2, 4), (0, 0)), par.COL)
+        with pytest.raises(AssertionError, match="divisible"):
+            jax_shard_vector(to_jax(q), mesh, "col")
+        return
+    kind, bits = case.split()
+    bits = int(bits)
+    rng = np.random.default_rng(5)
+    zero = 0x08 if bits == 4 else 0
+    if kind == "matrix":
+        jq = ct.quantize(jnp.asarray(rng.random((128, 1024), np.float32)
+                                     * 2 - 1), bits)
+        sharded = jax_shard_matrix(jq, mesh)
+        width = 256 * bits // 8
+    else:
+        jq = ct.quantize(jnp.asarray(rng.random(128, np.float32) * 2 - 1),
+                         bits)
+        sharded = jax_shard_vector(jq, mesh, "row")
+        width = 64 * bits // 8
+    codes, scales = (_jax_shards(sharded.codes, mesh),
+                     _jax_shards(sharded.scales, mesh))
+    for (r, c), want in codes.items():
+        at = _Stub((2, 4), (r, c))
+        if kind == "matrix":
+            s = par.shard_matrix(to_torch(jq), at)
+            local = s.local
+            assert (local.rows, local.cols, s.rows, s.cols) == (64, 256, 128,
+                                                                1024)
+            assert local.codes.shape == (128, width)
+            np.testing.assert_array_equal(local.codes[:64].numpy(), want)
+            np.testing.assert_array_equal(local.scales[:1].numpy(),
+                                          scales[r, c])
+            pad_codes, pad_scales = local.codes[64:], local.scales[1:]
+        else:
+            s = par.shard_vector(to_torch(jq), at, par.ROW)
+            local = s.local
+            assert (local.length, s.length) == (64, 128)
+            assert local.codes.shape == (2 * width,)
+            np.testing.assert_array_equal(local.codes[:width].numpy(), want)
+            np.testing.assert_array_equal(local.scales[:1].numpy(),
+                                          scales[r, c])
+            pad_codes, pad_scales = local.codes[width:], local.scales[1:]
+        assert bool((pad_codes == zero).all())
+        assert bool((pad_scales == 1.0).all())
 
 
 @pytest.fixture(scope="module")

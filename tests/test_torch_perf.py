@@ -112,7 +112,9 @@ def test_mvm_rows_and_probe_floor(rows):
         if ba < 16:
             # the reference's dma_probe_call streams the codes
             streamed = dma_probe_call(qa[ba])[1]
-            want += [(f"dma probe {ba}-bit n={M}", streamed, False, False),
+            want += [(f"dma probe cluster {ba}-bit n={M}", streamed, False,
+                      False),
+                     (f"dma probe {ba}-bit n={M}", streamed, False, False),
                      (f"dma probe stream {ba}-bit n={M}", streamed, False,
                       False)]
         want += [(f"mvm {ba:2d}x{bx:2d}-bit n={M}", qa[ba].nbytes, True,

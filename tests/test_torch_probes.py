@@ -31,9 +31,10 @@ def test_plain_probes_equal_a_numpy_checksum(rng, bits, shape):
     q = tt.quantize(torch.from_numpy(
         rng.random(shape, dtype=np.float32) * 2 - 1), bits)
     want = _band_checksum(q.codes.numpy())
-    got = probes.dma_probe_plain(q.codes)
-    np.testing.assert_array_equal(got.numpy().view(np.uint32),
-                                  want.view(np.uint32))
+    for got in (probes.dma_probe_plain(q.codes),
+                probes.dma_probe_cluster_plain(q.codes)):
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      want.view(np.uint32))
     salt = torch.tensor([0.25])
     np.testing.assert_array_equal(
         probes.salted_probe_plain(q.codes, salt).numpy(),
@@ -79,11 +80,39 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         probes.dma_probe_cuda(codes)
     with pytest.raises(ValueError, match="CUDA"):
         probes.salted_probe_cuda(codes, torch.zeros(1))
+    with pytest.raises(ValueError, match="CUDA"):
+        probes.dma_probe_cluster_cuda(codes)
     with pytest.raises(ValueError, match="multiple of 64"):
         probes.dma_probe_cuda(torch.zeros(65, 128, dtype=torch.int8))
     assert kernels.KERNELS["dma_probe"] is probes.dma_probe_cuda
+    assert kernels.KERNELS["dma_probe_cluster"] is \
+        probes.dma_probe_cluster_cuda
     assert kernels.KERNELS["salted_probe"] is probes.salted_probe_cuda
-    assert len(kernels.KERNELS) == 21
+    assert len(kernels.KERNELS) == 22
+
+
+@pytest.mark.parametrize("rows", [2048, 4096, 8192, 16384, 524288])
+def test_cluster_probe_takes_the_mvm_geometry(monkeypatch, rows):
+    """The cluster probe launches at the fused MVM's rows per warp over the
+    same rows (the -p sizes, and the large-n leg's 2^19) on a 132-SM card:
+    the C entry gets kernels/mvm.py's R, from which csrc/probes.cu forms
+    the MVM's launch_geometry (clusters of 8 / R CTAs a band)."""
+    from clover_tpu_torch.kernels import mvm
+    r = mvm.rows_per_warp(rows, 132)
+    assert mvm.launch_geometry(rows, r) == (rows // 64 * (8 // r), 8 // r)
+    launched = []
+    monkeypatch.setattr(probes._build, "check", lambda *a, **k: None)
+    monkeypatch.setattr(probes._build, "launch",
+                        lambda name, dev, *args: launched.append(
+                            (name, args[2:])))
+    monkeypatch.setattr(probes.mvm, "_sm_count", lambda index: 132)
+    codes = torch.zeros(rows, 16, dtype=torch.int8)
+    before = probes.dma_probe_cluster_cuda.launches
+    probes.dma_probe_cluster_cuda(codes)
+    assert launched == [("clover_dma_probe_cluster", (rows, 16, r))]
+    assert probes.dma_probe_cluster_cuda.launches == before + 1
+    assert torch.equal(probes.dma_probe_cluster(codes),
+                       probes.dma_probe_plain(codes))
 
 
 def test_dispatch_reaches_the_kernels(monkeypatch):
@@ -92,9 +121,12 @@ def test_dispatch_reaches_the_kernels(monkeypatch):
     monkeypatch.setattr(probes, "on_cuda", lambda *t: True)
     monkeypatch.setattr(probes, "dma_probe_cuda",
                         lambda c: calls.append("dma") or c[:1, :1])
+    monkeypatch.setattr(probes, "dma_probe_cluster_cuda",
+                        lambda c: calls.append("cluster") or c[:1, :1])
     monkeypatch.setattr(probes, "salted_probe_cuda",
                         lambda c, s: calls.append("salted") or s)
     codes = torch.zeros(64, 128, dtype=torch.int8)
     probes.dma_probe(codes)
+    probes.dma_probe_cluster(codes)
     probes.salted_probe(codes, torch.zeros(1))
-    assert calls == ["dma", "salted"]
+    assert calls == ["dma", "cluster", "salted"]

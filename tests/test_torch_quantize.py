@@ -180,3 +180,90 @@ def test_quantize_keeps_device_and_container_shape():
     assert m.codes.shape == (256, 128) and m.scales.shape == (4, 2)
     with pytest.raises(ValueError):
         tt.quantize(torch.ones(2, 2, 2), 4)
+
+
+def _philox_keys(seed: int) -> dict:
+    """csrc/quantize.cu philox_keys: the launch constants of one seed."""
+    k = philox.M0 * seed
+    c3 = k & 0xFFFFFFFF
+    return {"k0": [(seed + r * philox.W0) & 0xFFFFFFFF for r in range(10)],
+            "c2_xor": (k >> 32) ^ philox.W1, "c3": c3,
+            "c2_xor_2": c3 ^ ((2 * philox.W1) & 0xFFFFFFFF)}
+
+
+def _philox_word0_32(seed: int, idx: np.ndarray) -> np.ndarray:
+    """csrc/quantize.cu philox_word0_32 in NumPy, on uint32 words held in
+    uint64: rounds 0-2 folded around the counter (index, 0, 0, 0), the key
+    words from the host."""
+    key = _philox_keys(seed)
+    mask, shift = np.uint64(0xFFFFFFFF), np.uint64(32)
+
+    def mul(m, x):
+        p = np.uint64(m) * (np.asarray(x, np.uint64) & mask)
+        return p >> shift, p & mask
+
+    hi, lo = mul(philox.M0, idx)                     # round 0
+    hi1, lo1 = mul(philox.M1, hi)                    # round 1
+    c0, c1 = hi1 ^ np.uint64(key["k0"][1]), lo1
+    c2 = lo ^ np.uint64(key["c2_xor"])
+    q0h, q0l = mul(philox.M0, c0)                    # round 2
+    q1h, q1l = mul(philox.M1, c2)
+    c0, c1 = q1h ^ c1 ^ np.uint64(key["k0"][2]), q1l
+    c2, c3 = q0h ^ np.uint64(key["c2_xor_2"]), q0l
+    for r in range(3, philox.ROUNDS):
+        s0h, s0l = mul(philox.M0, c0)
+        s1h, s1l = mul(philox.M1, c2)
+        c0, c1 = s1h ^ c1 ^ np.uint64(key["k0"][r]), s1l
+        c2 = s0h ^ c3 ^ np.uint64((r * philox.W1) & 0xFFFFFFFF)
+        c3 = s0l
+    return c0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF])
+def test_folded_32_bit_counter_philox_gives_the_same_words(rng, seed):
+    """The matrix kernel's 32-bit-counter Philox (counter word 1 zero,
+    rounds 0-2 folded around launch constants) gives word 0 of the full
+    generator at leg 0, the stream quantize_mat_plain draws."""
+    idx = np.concatenate([rng.integers(0, 1 << 32, 4096, dtype=np.uint64),
+                          np.array([0, 1, (1 << 32) - 1], np.uint64)])
+    t = torch.from_numpy(idx.astype(np.int64))
+    zeros = torch.zeros_like(t)
+    want = philox.philox4x32(t, zeros, zeros, zeros, seed, 0)[0].numpy()
+    np.testing.assert_array_equal(_philox_word0_32(seed, idx),
+                                  want.astype(np.uint64))
+
+
+def test_quantize_mat_kernel_threads_cover_a_tile_and_its_bytes():
+    """csrc/quantize.cu's thread map: thread tid of 256 takes rows r, r +
+    32 (r = tid / 8) and elements 4k..4k+3, 32+4k..32+4k+3 (k = tid % 8)
+    of a 64x64 tile, and writes packed bytes 4k..4k+3 of its two rows,
+    whose nibbles are exactly those elements: every element once, every
+    code byte once."""
+    elems, packed = np.zeros((64, 64), int), np.zeros((64, 32), int)
+    for tid in range(256):
+        r, k = tid >> 3, tid & 7
+        for row in (r, r + 32):
+            for j in range(4):
+                # packed byte b holds elements b (low) and b + 32 (high)
+                elems[row, [4 * k + j, 32 + 4 * k + j]] += 1
+                packed[row, 4 * k + j] += 1
+    assert (elems == 1).all() and (packed == 1).all()
+
+
+@pytest.mark.parametrize("qm", [7.0, 127.0])
+def test_rounding_with_one_conversion_equals_sr_codes(rng, qm):
+    """csrc/quantize.cu sr_code_rd, (int) floor(min(mag, qm)), gives
+    sr_code's (int) min(floor(mag), qm) for every mag the kernel forms:
+    uniform, around every integer up to qm + 1, qm itself, +inf and NaN
+    (0 * inf; fmin, like CUDA's fminf, takes qm from a NaN)."""
+    f32 = np.float32
+    ints = np.arange(0, qm + 2, dtype=f32)
+    mag = np.concatenate([
+        rng.random(4096, dtype=f32) * f32(qm + 2), ints,
+        np.nextafter(ints, f32(-1)), np.nextafter(ints, f32(np.inf)),
+        np.array([0.0, np.inf, np.nan], f32)])
+    qm = f32(qm)
+    with np.errstate(invalid="ignore"):
+        want = np.fmin(np.floor(mag), qm).astype(np.int32)
+        got = np.floor(np.fmin(mag, qm)).astype(np.int32)
+    np.testing.assert_array_equal(got, want)

@@ -238,3 +238,37 @@ def test_make_iht_problem_defaults_to_cuda(monkeypatch):
                        want)
     with pytest.raises(ValueError, match="differs"):
         tt.make_iht_problem(128, 256, 16, generator=real(), device="meta")
+
+
+def test_mixed_4x8_small_solve_diverges_in_both_packages(monkeypatch):
+    """The 4x8 2048x4096 IHT at its tuned mu (tuned for 1 iteration), run
+    for 100 deterministic iterations on the same containers: both packages
+    stay below 1.0 at the tuned iteration and diverge together after it
+    (chip_smoke.py phase 7 saw ~9e9 at 100 on the card), so the divergence
+    is the mu's, not the port's.  The traces part within a few iterations
+    (floor boundaries), so they are held by regime: above 1e3 at 100, within
+    10x of each other at 20, 50 and 100.  Prints both curves."""
+    from clover_tpu.models.solvers import iht as jax_iht
+    from clover_tpu_torch.models import tuned
+    from torch_helpers import to_jax
+    monkeypatch.setenv("CLOVER_PALLAS", "0")      # clover_tpu's XLA path
+    m, n = 2048, 4096
+    row = tuned.IHT_MIXED_4X8[(m, n)]
+    k, mu = row["K"], row["mu"]
+    gen = torch.Generator().manual_seed(3)
+    phi, x_star, y = tt.make_iht_problem(m, n, k, generator=gen,
+                                         device="cpu")
+    qphi = tt.quantize(phi, 4, generator=gen)
+    qphit, qy = tt.transpose(qphi), tt.quantize(y, 8, generator=gen)
+    xs = tt.QVec32(values=tt.formats.pad_vector(x_star), length=n)
+    got = tt.iht(qphi, qphit, qy, 100, k, mu, x_star=xs).trace.numpy()
+    want = np.asarray(jax_iht(to_jax(qphi), to_jax(qphit), to_jax(qy), 100,
+                              k, mu, key=None, x_star=to_jax(xs)).trace)
+    at = (1, 2, 5, 10, 20, 30, 50, 75, 100)
+    print("\niteration " + " ".join(f"{i:>10d}" for i in at))
+    for name, t in (("port", got), ("clover_tpu", want)):
+        print(f"{name:9s} " + " ".join(f"{t[i - 1]:10.4g}" for i in at))
+    assert got[row["iters"] - 1] < 1.0 and want[row["iters"] - 1] < 1.0
+    assert got[-1] > 1e3 and want[-1] > 1e3
+    for i in (20, 50, 100):
+        assert 0.1 < got[i - 1] / want[i - 1] < 10.0, i

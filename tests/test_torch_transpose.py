@@ -1,6 +1,9 @@
 """clover_tpu_torch transpose (the 4- and 8-bit kernels' plain versions)
 against clover_tpu: bit-identical."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -72,3 +75,74 @@ def test_transpose8_plain_on_raw_codes(rng):
     assert t.shape == (384, 256) and t.dtype == torch.int8
     assert t.is_contiguous()
     np.testing.assert_array_equal(t.numpy(), codes.numpy().T)
+
+
+TRANSPOSE_CU = (Path(tt.__file__).resolve().parent / "csrc" /
+                "transpose.cu").read_text()
+# the assignments of transpose4x4 in csrc/transpose.cu, in order:
+# (target, x, y, selector) of target = __byte_perm(x, y, selector)
+BYTE_PERMS = re.findall(
+    r"(\w+(?:\[\d\])?) = __byte_perm\((\w+(?:\[\d\])?), (\w+(?:\[\d\])?), "
+    r"(0x[0-9A-Fa-f]+)\);", TRANSPOSE_CU)
+
+
+def _byte_perm(x, y, selector: int):
+    """__byte_perm on uint32 arrays: result byte i is byte (selector >> 4i)
+    & 7 of the 8 bytes x0..x3, y0..y3."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + \
+        [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(src[(selector >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def _transpose4x4(r):
+    env = {f"r[{i}]": r[i] for i in range(4)}
+    for target, x, y, sel in BYTE_PERMS:
+        env[target] = _byte_perm(env[x], env[y], int(sel, 16))
+    return [env[f"c[{e}]"] for e in range(4)]
+
+
+def _transpose4_model(codes: np.ndarray) -> np.ndarray:
+    """csrc/transpose.cu transpose4_kernel in NumPy, a lane at a time over
+    every tile at once: tile row ti, tile column tj and word column k of a
+    tile (bytes 4k..4k+3 of its rows 0-31, P, and 32-63, Q), the word
+    reads, the 4x4 byte transposes by the source's __byte_perm selectors,
+    the nibble merge by word masks, and the 16-byte stores at output rows
+    64 tj + 4k + e and + 32, bytes 32 ti + 16 half ..."""
+    m, wa = codes.shape
+    n = 2 * wa
+    words = codes.view(np.uint8).reshape(m // 64, 64, n // 64, 8, 4) \
+        .astype(np.uint64)
+    # words[ti, row, tj, k]: bytes 4k..4k+3 of the tile row, little-endian
+    words = sum(words[..., i] << (8 * i) for i in range(4))
+    out = np.zeros((n // 64, 64, m // 64, 32), np.uint8)
+    for half in range(2):
+        for g in range(4):
+            j0 = half * 16 + g * 4
+            tp = _transpose4x4([words[:, j0 + i] for i in range(4)])
+            tq = _transpose4x4([words[:, 32 + j0 + i] for i in range(4)])
+            for e in range(4):
+                lo = (tp[e] & 0x0F0F0F0F) | \
+                    (((tq[e] << 4) ^ 0x80808080) & 0xF0F0F0F0)
+                hi = (((tp[e] >> 4) & 0x0F0F0F0F) ^ 0x08080808) | \
+                    (tq[e] & 0xF0F0F0F0)
+                for i in range(4):     # byte i of word g: J = j0 + i
+                    # lo, hi: [ti, tj, k]; out[tj, c, ti, J] indexed by (k, tj, ti)
+                    out[:, 4 * np.arange(8) + e, :, j0 + i] = (
+                        (lo >> (8 * i)) & 0xFF).transpose(2, 1, 0)
+                    out[:, 32 + 4 * np.arange(8) + e, :, j0 + i] = (
+                        (hi >> (8 * i)) & 0xFF).transpose(2, 1, 0)
+    return out.reshape(n, m // 2).view(np.int8)
+
+
+@pytest.mark.parametrize("shape", [(128, 384), (384, 640), (320, 1152)])
+def test_transpose4_kernel_model_matches_plain(rng, shape):
+    """The kernel's word arithmetic, modelled from its source, gives the
+    plain version's bytes (uniform data, and codes +-7 and 0 in both
+    nibble positions)."""
+    assert len(BYTE_PERMS) == 8
+    a = rng.random(shape, dtype=np.float32) * 2 - 1
+    a[:64, :64] = np.where(a[:64, :64] > 0, 1.0, -1.0)     # codes +-7
+    a[64:128, :64] = 0.0                                   # codes 0
+    codes = tt.quantize(torch.from_numpy(a), 4).codes
+    want = transpose4_plain(codes).numpy()
+    np.testing.assert_array_equal(_transpose4_model(codes.numpy()), want)

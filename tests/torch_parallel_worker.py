@@ -27,6 +27,9 @@ MESHES = ((2, 4), (8, 1))
 SOLVES = (("iht", 4, 4), ("iht", 4, 8), ("iht", 8, 8), ("gd", 4, 8),
           ("gd", 4, 4))
 ITERS, K, MU, SEED = 20, 32, 2e-3, 0
+# a 4-bit IHT whose row shards on the 2x4 mesh are 64 rows, an odd
+# multiple of 64 that the port holds padded to 128
+ODD_SIZE, ODD_SOLVES = (128, 1024), (("iht", 4, 4),)
 CHUNKS = (1, 3, 4)
 ITER_BITS = ((4, 4), (4, 8))
 THRESHOLD_KINDS = ("uniform", "ties")
@@ -133,20 +136,27 @@ def owned(obj):
     return obj
 
 
-def run_solves(par, mesh, shape, res, rank):
+def solve_name(kind, ba, bx, shape, size=None) -> str:
+    return (f"{kind} {ba}x{bx} {shape[0]}x{shape[1]}"
+            + (f" {size[0]}x{size[1]}" if size else ""))
+
+
+def run_solves(par, mesh, shape, res, rank, size=None, solves=SOLVES):
+    """Each of ``solves`` on the mesh at ``size`` (default
+    solve_sizes(shape)), with the single solve on rank 0."""
     from clover_tpu_torch.parallel import solvers
-    m, n = solve_sizes(shape)
+    m, n = size or solve_sizes(shape)
     phi, x_star, y = solve_problem(m, n)
     xs = tt.QVec32(values=tt.formats.pad_vector(torch.from_numpy(x_star)),
                    length=n)
-    for kind, ba, bx in SOLVES:
+    for kind, ba, bx in solves:
         qphi = tt.quantize(torch.from_numpy(phi), ba)
         qphit = tt.transpose(qphi)
         qy = tt.quantize(torch.from_numpy(y), bx)
         args = (par.shard_matrix(qphi, mesh),
                 par.shard_matrix(qphit, mesh, transposed=True),
                 par.shard_vector(qy, mesh, par.ROW))
-        name = f"{kind} {ba}x{bx} {shape[0]}x{shape[1]}"
+        name = solve_name(kind, ba, bx, shape, size)
         if kind == "iht":
             got = solvers.iht(*args, ITERS, K, MU, mesh, generator=SEED,
                               x_star=xs)
@@ -266,6 +276,7 @@ def main(rank: int, world: int, port: int, out: str) -> int:
             mesh = par.make_mesh(shape=shape)
             run_solves(par, mesh, shape, res, rank)
             if shape == MESHES[0]:
+                run_solves(par, mesh, shape, res, rank, ODD_SIZE, ODD_SOLVES)
                 run_exact(par, mesh, res)
                 run_server(par, mesh, shape, res, rank)
         res["imports jax"] = any(m == "jax" or m.startswith(("jax.",
