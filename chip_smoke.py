@@ -75,14 +75,17 @@ Phases, each of which raises on failure:
    whose order needs the IEEE s/qmax) bit-identical; the whole-iteration
    and chained kernels (4x4, 4x8; 4096x8192, 2048x4096, 512x1024; chains
    of 4 with k = n/4 and GD) bit-identical to their plain versions and to
-   the unfused kernel sequence, the whole iteration at grids 1, 7 and the
-   default, the chain also at chains of 1 and 16, at 1 and 7 clusters and
-   at 8192x8192; the matrix restore
-   bit-identical (8192x16384 and 200x300, SR codes); the dot within 1e-5
-   of its terms' absolute sum of the plain version, bit-identical on a
-   repeated call, and within 0.02 max(1, |ref|/10) of golden.dot at
-   n <= 65536 (n = 16384, 2^24, 1000); hist4 and mask4 bit-identical, and
-   the hybrid through ``tt.threshold`` byte-identical to the radix kernel
+   the unfused kernel sequence, the whole iteration at 1 and 7 clusters
+   and the default grid, the chain also at chains of 1 and 16, at 1 and
+   7 clusters and at 8192x8192; the matrix restore bit-identical
+   (8192x16384 and 200x300, SR codes); the dot bit-identical to its
+   plain version in the kernel's order at grids 2, 7 and the default,
+   within 1e-5 of its terms' absolute sum of the torch-order plain
+   version, bit-identical on a repeated call, and within 0.02 max(1,
+   |ref|/10) of golden.dot at n <= 65536 (n = 16384, 2^24, 1000), timed
+   back to back and rotating past the L2; hist4 and mask4
+   bit-identical, and the hybrid through ``tt.threshold`` byte-identical
+   to the radix kernel
    and its plain version (n = 2^19, 2^20, 2^23; K = 1, 64, 256; uniform,
    integer-valued and k > nnz data) and free of host syncs (torch's sync
    debug mode), with the hybrid's split (hist4, selector, mask4) timed
@@ -176,7 +179,8 @@ The line before the last is ``{"kernels": [...]}``, each kernel with its
 bound: the larger of its bytes (every input read once, every output
 written once) over the card's memory rate and its int8 operations over
 the int8 peak (NVIDIA's data sheet); mvm4's entry also carries phase
-10's 2048x524288 Phi leg (``large_n_phi_ms``, ``large_n_phi_bound_ms``);
+10's 2048x524288 Phi leg (``large_n_phi_ms``, ``large_n_phi_bound_ms``),
+the dot's its 2^24 4-bit time rotating past the L2 (``rotating_ms``);
 the last is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device it prints no result and exits
 2.
@@ -220,7 +224,9 @@ CHAIN = 4                     # iterations per chained launch (the solver's)
 EPOCHS = 200                  # the accuracy protocol's
 INT8_OPS = 1979e12            # H100 SXM int8 tensor-core peak, ops/s
 DOT_SIZES = (16384, 1 << 24, 1000)
-DOT_RTOL = 1e-5               # of sum |t_b|: the f32 sum order differs
+DOT_RTOL = 1e-5               # of sum |t_b|: torch's f32 sum order differs
+RING_BYTES = 256 << 20        # rotating copies of an operand pass the L2
+                              # (at most 4096 copies: 75 MB at n = 16384)
 # csrc/threshold.cu resident_path: the select holds n_pad <= this many
 # elements in registers; the edge checks straddle it
 SELECT_RESIDENT = 16384
@@ -388,6 +394,7 @@ class Report:
         self.leg_ms = {}     # (mode, leg) -> kernel ms of an MVM+AXPY leg
         self.large = {}      # leg -> (ms, bound ms) of the large-n 4x4 legs
         self.sweep = {}      # B -> batched MVM ms, 4x4 at NS x NS
+        self.rotating_ms = {}  # name -> ms through copies past the L2
 
     def exact(self, name: str, what: str, got, want, bits: int = 4,
               say: bool = True):
@@ -1097,11 +1104,12 @@ def unfused_chain(bits_x: int, ops, mu: float, k, seeds, noise: bool):
 
 def check_iteration(rep: Report, gen, modes):
     """The whole-iteration and chained kernels against their plain
-    versions and the unfused kernel sequence, at grids 1, 7 and the
-    default (min(bands, co-resident CTAs))."""
+    versions and the unfused kernel sequence; the whole iteration at 1 and
+    7 clusters and the default grid (a cluster per band of the larger leg,
+    capped by the co-resident CTAs)."""
     from clover_tpu_torch.kernels import iteration as it
     mu = 0.0005050158681869508   # the tuned 4-bit mu at 4096x8192
-    print("  iteration     co-resident CTAs (occupancy x SMs): " + ", ".join(
+    print("  iteration     co-resident CTAs (clusters x CTAs): " + ", ".join(
         f"4x{bx} {'chain' if chained else 'whole'} "
         f"{it.co_resident(0, 4, bx, chained)}"
         for bx in (4, 8) for chained in (False, True)))
@@ -1114,7 +1122,7 @@ def check_iteration(rep: Report, gen, modes):
                 flags = (noise,) * 4
                 want = it.iteration_plain(4, bits_x, *ops, mu, seeds[:4],
                                           flags)
-                for grid in (None, 1, 7):
+                for grid in (None, it.CHAIN_CLUSTER, 7 * it.CHAIN_CLUSTER):
                     rep.exact("iteration", f"{mode} grid={grid} {what}",
                               it.iteration_cuda(4, bits_x, *ops, mu,
                                                 seeds[:4], flags, grid=grid),
@@ -1199,21 +1207,32 @@ def check_restore_mat(rep: Report, phi, gen):
 
 
 def check_dot(rep: Report, gen):
-    """The dot kernel against its plain version (within DOT_RTOL of the
-    terms' absolute sum), two calls bit-identical, and against the port's
-    golden.dot at n <= 65536 within the reference's 0.02 max(1, |ref|/10)."""
+    """The dot kernel bit-identical to its plain version in the kernel's
+    order (dot_plain_ordered) at the default grid and at 2 and 7 CTAs,
+    within DOT_RTOL of the terms' absolute sum of the torch-order plain
+    version, two calls bit-identical, and against the port's golden.dot at
+    n <= 65536 within the reference's 0.02 max(1, |ref|/10); timed at n =
+    16384 and 2^24, back to back (the 2^24 pair fits in the 50 MB L2) and
+    rotating through copies past the L2."""
+    import itertools
     import torch
     import clover_tpu_torch as tt
     from clover_tpu_torch import golden
-    from clover_tpu_torch.kernels import dot_cuda, dot_plain, dot_terms
+    from clover_tpu_torch.kernels import (dot_cuda, dot_plain,
+                                          dot_plain_ordered, dot_terms)
     dev = gen.device
-    timed_ops = None
+    timed = {}
     for n in DOT_SIZES:
         for bits in (4, 8):
             u, v = (tt.quantize(torch.rand(n, generator=gen, device=dev) * 2
                                 - 1, bits, generator=gen) for _ in range(2))
             ops = (u.codes, u.scales, v.codes, v.scales, bits)
             got, again = dot_cuda(*ops), dot_cuda(*ops)
+            for grid in (2, 7):
+                rep.exact("dot", f"n={n} {bits}-bit grid={grid}",
+                          dot_cuda(*ops, grid=grid), got, say=False)
+            rep.exact("dot", f"n={n} {bits}-bit = ordered plain", got,
+                      dot_plain_ordered(*ops), say=False)
             terms = dot_terms(*ops)
             gap = float((got - terms.sum()).abs())
             tol = DOT_RTOL * float(terms.abs().sum())
@@ -1222,10 +1241,10 @@ def check_dot(rep: Report, gen):
                 raise AssertionError(f"dot n={n} {bits}-bit: |kernel - "
                                      f"plain| {gap} > {tol}, or two calls "
                                      f"differ")
-            rep.err["dot"] = max(rep.err["dot"], gap)
             line = (f"  dot           n={n} {bits}-bit: {float(got):.7g}, "
-                    f"|kernel - plain| {gap:.3g} <= {tol:.3g}, repeat "
-                    f"bit-identical")
+                    f"bit-identical to the ordered plain version at grids "
+                    f"2, 7 and the default; |kernel - torch-order plain| "
+                    f"{gap:.3g} <= {tol:.3g}, repeat bit-identical")
             if n <= 65536:
                 ref = float(golden.dot(*(codes_of(c, bits).cpu().numpy()
                                          if c.dtype == torch.int8
@@ -1237,10 +1256,25 @@ def check_dot(rep: Report, gen):
                                          f" vs golden {ref}")
                 line += f", golden {ref:.7g}"
             print(line)
-            if (n, bits) == (1 << 24, 4):
-                timed_ops = ops
-    rep.time("dot", lambda: dot_cuda(*timed_ops),
-             lambda: dot_plain(*timed_ops), 2 * qbytes(1 << 24, 4) + 4)
+            if n >= 16384:
+                timed[n, bits] = ops
+    for (n, bits), ops in timed.items():
+        warm = median_ms(lambda: dot_cuda(*ops), 5, 20)
+        per = sum(t.nbytes for t in ops[:4])
+        ring = [[t.clone() for t in ops[:4]]
+                for _ in range(min(4096, -(-RING_BYTES // per)))]
+        turn = itertools.count()
+        rot = median_ms(lambda: dot_cuda(*ring[next(turn) % len(ring)],
+                                         bits), 5, 20)
+        print(f"  dot           n={n} {bits}-bit: back to back {warm:.4f} "
+              f"ms, rotating through {len(ring)} copies {rot:.4f} ms, "
+              f"bound {per / hbm_rate() * 1e3:.4f} ms")
+        del ring
+        if (n, bits) == (1 << 24, 4):
+            rep.rotating_ms["dot"] = rot
+    ops = timed[1 << 24, 4]
+    rep.time("dot", lambda: dot_cuda(*ops), lambda: dot_plain(*ops),
+             2 * qbytes(1 << 24, 4) + 4)
 
 
 def hybrid_data(gen, n: int, k: int):
@@ -2905,6 +2939,10 @@ def main() -> int:
     # beside mvm4's 8192x16384 leg: phase 10's 2048x524288 Phi leg
     large = kernels[list(KERNEL_INFO).index("mvm4")]
     large["large_n_phi_ms"], large["large_n_phi_bound_ms"] = rep.large["Phi"]
+    # beside the dot's back-to-back time (its pair fits in the L2): the same
+    # call rotating through copies past the L2
+    dot = kernels[list(KERNEL_INFO).index("dot")]
+    dot["rotating_ms"] = rep.rotating_ms["dot"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,123 +13,171 @@
 // because the MXU has no exact integer path; here __dp4a sums four int8
 // products into an int32.
 //
-// Design: a warp reads 128 contiguous code bytes per step, 4 per lane:
-// four 4-bit blocks (8 lanes a block) or two 8-bit blocks (16 lanes a
-// block).  4-bit lanes unpack their word's low and high nibbles into two
-// words of four int8 codes (__vsub4 re-biases and sign-extends per byte)
-// and take two __dp4a; a shuffle reduction over the block's lanes gives
-// acc_b.  Each CTA takes a fixed run of DOT_BLOCKS_PER_CTA blocks, sums its
-// terms in a fixed order and writes one f32 partial; a second launch of one
-// CTA sums the partials in a fixed order.  No float atomics, so repeated
-// calls give the same bits.
+// Summation order, a function of n alone (kernels/dot.py
+// dot_plain_ordered repeats it with elementwise f32 adds):
+//   - The blocks fall into tiles of DOT_TILE = 256.  A warp step reads G
+//     blocks, 512 contiguous bytes of u and of v, 16 a lane (G = 32 /
+//     lanes a block: 16 at 4 bits, 8 at 8 bits), so a tile is STEPS = 2
+//     (4-bit) or 4 (8-bit) steps of the DOT_WARPS warps: warp w's step s
+//     reads blocks t DOT_TILE + (s DOT_WARPS + w) G + g, g < G.
+//   - Group g of warp w adds its STEPS terms in step order, from +0; the G
+//     group sums reduce as (g, g ^ G/2), ..., (g, g ^ 1), then the
+//     DOT_WARPS warp sums as (w, w ^ 4), (w, w ^ 2), (w, w ^ 1): the tile's
+//     partial.  Blocks past the last are +0 terms.
+//   - The partials are summed by thread j of one CTA as partials j, j +
+//     DOT_THREADS, ... in order, from +0, then over the threads by the same
+//     halving trees (lanes, then warps).
+//   No float atomics, and no order that depends on the grid: a CTA walks
+//   tiles blockIdx.x, blockIdx.x + gridDim.x, ..., so any grid and every
+//   repeated call give the same bits.
+//
+// One launch a call: each CTA writes its tiles' partials, makes them
+// visible (__threadfence) and takes an integer ticket (atomicAdd); the CTA
+// that draws the last ticket sums the partials, reading them from L2
+// (ld.global.cg), writes the result and resets the ticket to 0 for the next
+// call.  The caller keeps one ticket per stream (kernels/dot.py), since two
+// calls on one stream never overlap and calls on two streams must not share
+// a count.  The parent's second launch, one CTA summing the partials, cost
+// a launch floor at every n.
 //
 // Bound: both code streams and both scale streams read once, 9/16 byte per
 // element and vector at 4 bits (18.9 MB, 0.0056 ms at n = 2^24 and 3.35
-// TB/s), 17/16 at 8 bits; at the solver's n = 16384 the launch decides.
-#include "common.cuh"
+// TB/s), 17/16 at 8 bits; at the solver's n = 16384 and -v's sizes the
+// launch decides.  Every load of a tile -- STEPS 16-byte loads of u and of
+// v and their scales per lane, 16 KB (4-bit) or 32 KB (8-bit) of codes a
+// CTA -- is issued before the first term is formed, and one tile a CTA is
+// the default grid (1024 CTAs at 2^24), so the card holds megabytes of
+// loads in flight.  A tile of 256 blocks measured faster than one of 512
+// or 1024 at 4 bits and than one of 128 or 512 at 8 bits (PERF.md §6).
+#include "mvm_rows.cuh"
 
 namespace clover {
 
 constexpr int DOT_THREADS = 256;
-constexpr int DOT_BLOCKS_PER_CTA = 256;   // 64-blocks per CTA
-constexpr int SUM_THREADS = 256;
+constexpr int DOT_WARPS = DOT_THREADS / 32;
+constexpr int DOT_TILE = 256;  // blocks of a tile
 
-// Low (biased) and high nibbles of four packed bytes as four int8 codes.
-__device__ __forceinline__ void unpack4(unsigned w, int& lo, int& hi) {
-  lo = (int)__vsub4(w & 0x0F0F0F0Fu, 0x08080808u);
-  hi = (int)__vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
+template <int BITS>
+struct DotGeom {
+  static constexpr int LANES = BITS == 4 ? 2 : 4;  // lanes sharing a block
+  static constexpr int G = 32 / LANES;              // blocks a warp step
+  static constexpr int STEPS = DOT_TILE / (DOT_WARPS * G);  // loaded at once
+};
+
+// The int8x4 codes of four bytes: 4-bit words give their low and high
+// nibbles (low_codes, high_codes), 8-bit words are their codes.
+template <int BITS>
+__device__ __forceinline__ int dot_words(const uint4& a, const uint4& b) {
+  const uint32_t wa[4] = {a.x, a.y, a.z, a.w};
+  const uint32_t wb[4] = {b.x, b.y, b.z, b.w};
+  int d = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (BITS == 4) {
+      d = __dp4a(low_codes(wa[j]), low_codes(wb[j]), d);
+      d = __dp4a(high_codes(wa[j]), high_codes(wb[j]), d);
+    } else {
+      d = __dp4a((int)wa[j], (int)wb[j], d);
+    }
+  }
+  return d;
+}
+
+// Lane 0's value of the butterfly (v, v ^ o) for o = FIRST, FIRST / 2, ...,
+// LAST: the halving tree of the order note.
+template <int FIRST, int LAST>
+__device__ __forceinline__ float halve(float v) {
+#pragma unroll
+  for (int o = FIRST; o >= LAST; o >>= 1)
+    v = v + __shfl_xor_sync(FULL_MASK, v, o);
+  return v;
 }
 
 template <int BITS>
 __global__ void __launch_bounds__(DOT_THREADS)
-dot_partial_kernel(const int8_t* __restrict__ u, const int8_t* __restrict__ v,
-                   const float* __restrict__ su, const float* __restrict__ sv,
-                   float* __restrict__ partial, int64_t nb) {
-  // lanes per block and blocks per warp step
-  constexpr int LPB = BITS == 4 ? 8 : 16;
-  constexpr int BPS = 32 / LPB;
-  constexpr int STEPS = DOT_BLOCKS_PER_CTA / (BPS * (DOT_THREADS / 32));
+dot_kernel(const int8_t* __restrict__ u, const int8_t* __restrict__ v,
+           const float* __restrict__ su, const float* __restrict__ sv,
+           float* partial, unsigned* ticket, float* out, int64_t nb,
+           int64_t tiles) {
+  using Geo = DotGeom<BITS>;
   constexpr float QM = BITS == 4 ? 7.0f : 127.0f;
-  __shared__ float warp_sum[DOT_THREADS / 32];
+  constexpr int BLOCK_BYTES = 8 * BITS;
+  __shared__ float warp_sum[DOT_WARPS];
+  __shared__ bool last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t first = (int64_t)blockIdx.x * DOT_BLOCKS_PER_CTA;
-  float sum = 0.0f;   // lane 0: this warp's terms, in block order
-  for (int s = 0; s < STEPS; ++s) {
-    const int64_t b0 = first + ((int64_t)warp * STEPS + s) * BPS;
-    const int64_t b = b0 + lane / LPB;
-    int acc = 0;
-    if (b < nb) {
-      // 128 contiguous code bytes from block b0 on; word `lane`
-      const unsigned wu = ((const unsigned*)(u + b0 * 8 * BITS))[lane];
-      const unsigned wv = ((const unsigned*)(v + b0 * 8 * BITS))[lane];
-      if (BITS == 4) {
-        int ul, uh, vl, vh;
-        unpack4(wu, ul, uh);
-        unpack4(wv, vl, vh);
-        acc = __dp4a(ul, vl, __dp4a(uh, vh, 0));
-      } else {
-        acc = __dp4a((int)wu, (int)wv, 0);
-      }
-    }
+  const int group = lane / Geo::LANES;
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    uint4 wu[Geo::STEPS], wv[Geo::STEPS];
+    float fu[Geo::STEPS], fv[Geo::STEPS];
 #pragma unroll
-    for (int o = LPB / 2; o; o >>= 1) acc += __shfl_xor_sync(FULL_MASK, acc, o);
-    float t = 0.0f;
-    if (b < nb && lane % LPB == 0)
-      t = (su[b] / QM) * (sv[b] / QM) * (float)acc;
-    // lane 0 adds the step's terms in block order
-#pragma unroll
-    for (int g = 0; g < BPS; ++g) {
-      const float tg = __shfl_sync(FULL_MASK, t, g * LPB);
-      if (lane == 0) sum += tg;
+    for (int s = 0; s < Geo::STEPS; ++s) {
+      const int64_t b0 = tile * DOT_TILE + (s * DOT_WARPS + warp) * Geo::G;
+      const int64_t b = b0 + group;
+      const bool valid = b < nb;
+      const int64_t off = b0 * BLOCK_BYTES + lane * 16;
+      wu[s] = ld_ro(u + off, valid);
+      wv[s] = ld_ro(v + off, valid);
+      fu[s] = ld_ro(su + b, valid);
+      fv[s] = ld_ro(sv + b, valid);
     }
-  }
-  if (lane == 0) warp_sum[warp] = sum;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float c = 0.0f;
-    for (int w = 0; w < DOT_THREADS / 32; ++w) c += warp_sum[w];
-    partial[blockIdx.x] = c;
-  }
-}
-
-// One CTA: thread t sums partials t, t + SUM_THREADS, ... in order, then a
-// fixed tree over the threads.
-__global__ void __launch_bounds__(SUM_THREADS)
-dot_sum_kernel(const float* __restrict__ partial, float* __restrict__ out,
-               int64_t count) {
-  __shared__ float s[SUM_THREADS];
-  float c = 0.0f;
-  for (int64_t i = threadIdx.x; i < count; i += SUM_THREADS) c += partial[i];
-  s[threadIdx.x] = c;
-  __syncthreads();
-  for (int w = SUM_THREADS / 2; w; w >>= 1) {
-    if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
+    float acc = 0.0f;
+#pragma unroll
+    for (int s = 0; s < Geo::STEPS; ++s) {
+      int d = dot_words<BITS>(wu[s], wv[s]);
+#pragma unroll
+      for (int o = 1; o < Geo::LANES; o <<= 1)
+        d += __shfl_xor_sync(FULL_MASK, d, o);  // the block's exact dot
+      // (0 / qmax) * (0 / qmax) * 0 = +0 past the last block
+      acc = acc + (fu[s] / QM) * (fv[s] / QM) * (float)d;
+    }
+    acc = halve<16, Geo::LANES>(acc);
+    if (lane == 0) warp_sum[warp] = acc;
     __syncthreads();
+    if (warp == 0) {
+      const float w = halve<DOT_WARPS / 2, 1>(
+          lane < DOT_WARPS ? warp_sum[lane] : 0.0f);
+      if (lane == 0) partial[tile] = w;
+    }
+    __syncthreads();  // warp_sum is free for the next tile
   }
-  if (threadIdx.x == 0) out[0] = s[0];
+  __threadfence();  // this CTA's partials reach L2 before its ticket
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // every other CTA's partials, read below from L2
+  float c = 0.0f;
+  for (int64_t i = threadIdx.x; i < tiles; i += DOT_THREADS)
+    c = c + ld_cg(partial + i);
+  c = halve<16, 1>(c);
+  if (lane == 0) warp_sum[warp] = c;
+  __syncthreads();
+  if (warp == 0) {
+    const float w =
+        halve<DOT_WARPS / 2, 1>(lane < DOT_WARPS ? warp_sum[lane] : 0.0f);
+    if (lane == 0) {
+      out[0] = w;
+      *ticket = 0u;  // the stream's next call starts from 0
+    }
+  }
 }
 
 }  // namespace clover
 
-// The partials buffer holds one f32 per CTA: ceil(n_pad / 64 /
-// DOT_BLOCKS_PER_CTA) (kernels/dot.py BLOCKS_PER_CTA).
-
+// partial: one f32 per tile, ceil(n_pad / 64 / DOT_TILE); ticket: the
+// stream's counter, 0 between calls; grid: CTAs, at least 1.
 extern "C" int clover_dot(const int8_t* u, const int8_t* v, const float* su,
-                          const float* sv, float* partial, float* out,
-                          int64_t n_pad, int bits, void* stream) {
+                          const float* sv, float* partial, unsigned* ticket,
+                          float* out, int64_t n_pad, int bits, int grid,
+                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int64_t nb = n_pad / 64;
-  const int ctas = (int)((nb + clover::DOT_BLOCKS_PER_CTA - 1) /
-                         clover::DOT_BLOCKS_PER_CTA);
+  if (grid < 1 || (bits != 4 && bits != 8)) return (int)cudaErrorInvalidValue;
+  const int64_t tiles = (nb + clover::DOT_TILE - 1) / clover::DOT_TILE;
   if (bits == 4)
-    clover::dot_partial_kernel<4><<<ctas, clover::DOT_THREADS, 0, st>>>(
-        u, v, su, sv, partial, nb);
+    clover::dot_kernel<4><<<grid, clover::DOT_THREADS, 0, st>>>(
+        u, v, su, sv, partial, ticket, out, nb, tiles);
   else
-    clover::dot_partial_kernel<8><<<ctas, clover::DOT_THREADS, 0, st>>>(
-        u, v, su, sv, partial, nb);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  clover::dot_sum_kernel<<<1, clover::SUM_THREADS, 0, st>>>(partial, out,
-                                                             ctas);
+    clover::dot_kernel<8><<<grid, clover::DOT_THREADS, 0, st>>>(
+        u, v, su, sv, partial, ticket, out, nb, tiles);
   return (int)cudaGetLastError();
 }

@@ -12,50 +12,55 @@
 //
 // Numbers: bit-identical to the unfused kernel sequence -- two mvm.cu
 // launches, then one threshold.cu launch -- in deterministic and SR modes.
-// The whole-iteration kernel runs each band through mvm_band (mvm.cuh),
-// the chained kernel through row_sums and band_epilogue (mvm_rows.cuh),
-// mvm.cu's own body; every one of them walks a row in the same chunks,
-// groups and order, so a row's f32 sum is mvm_kernel's.  Phase C runs the
-// select of threshold_kernel (threshold.cuh), whose kept set is the unique
-// golden one at any thread count.  The SR noise of an element is
-// Philox(seed, element index, leg) as in mvm.cu, and iteration it of a
-// chain takes the four per-op seeds of the unchained solver loop
+// Both kernels run each band through row_sums and band_epilogue
+// (mvm_rows.cuh), mvm.cu's own body, which walk a row in the chunks,
+// groups and order of mvm.cu's note, so a row's f32 sum is mvm_kernel's.
+// Phase C runs the select of threshold_kernel (threshold.cuh), whose kept
+// set is the unique golden one at any thread count.  The SR noise of an
+// element is Philox(seed, element index, leg) as in mvm.cu, and iteration
+// it of a chain takes the four per-op seeds of the unchained solver loop
 // (clover_tpu_torch/models/solvers.py _op_seeds).
 //
-// Whole iteration: one cooperative launch of MV_THREADS-thread CTAs, as
-// many as fit on the card at once and no more than the larger leg's bands.
-// Leg A walks Phi's m_pad/64 bands in a grid-stride loop and writes t2's
-// codes and scales to a device scratch buffer (a few KB: it stays in L2);
-// a grid barrier; leg B walks PhiT's bands against t2, with u = x, and
-// writes the new x.  Data written by another CTA is read with
-// ld.global.cg (common.cuh ld_cg).
-//
-// Chain: one cooperative launch of clusters of CHAIN_CLUSTER = 2 CTAs.
 // Bound: device memory, or L2 while the pair fits there: per iteration
 // both 4-bit matrices are read once, m_pad * n_pad bytes, 33.6 MB at
 // 4096x8192 (10.0 us at 3.35 TB/s; the 50 MB L2 holds the pair up to
-// that size); then a grid barrier and the select of 8192 elements in
-// phase C.  What the design does about it:
+// that size, and Phi and PhiT are read through the read-only path, which
+// leaves them there between launches).  Both kernels are one cooperative
+// launch of clusters of CHAIN_CLUSTER = 2 CTAs, at most as many as fit on
+// the card at once; a leg ends in a grid barrier.  What the design does
+// about the bound:
 //   - A band's 64 rows are split over the two CTAs of a cluster,
 //     CHAIN_ROWS = 4 a warp, as mvm.cu splits them (never the reduction):
 //     each CTA streams its rows through row_sums' ring of registers, the
 //     row sums meet in the cluster leader's shared memory (DSMEM), and the
 //     leader's warp 0 runs the band epilogue.  Clusters walk the bands
 //     grid-stride; 132 clusters fit at 2 CTAs an SM, so leg B's 128 bands
-//     at 4096x8192 take one round.  Clusters of 4 (62 fit: leg A's 64
-//     bands take two rounds) and of 8 measured slower (PERF.md §6).
-//     ys is double-buffered by band, so a peer's next sums never meet a
-//     leader still reading.
-//   - x lives in every CTA's shared memory: leg A reads it there, leg B
-//     takes it as u there, and phase C runs in every CTA: after the grid
-//     barrier that ends leg B, each CTA reads the new x (at most 8 KB,
-//     from L2 with ld_cg) and selects its top K into its own copy.  An
-//     iteration has two grid barriers, and no CTA waits while one other
-//     selects.  CTA 0 writes the thresholded codes out after the last
-//     iteration.
-// x ping-pongs between two scratch slots (leg B of iteration it writes
-// slot it & 1, the thresholded codes go to xt and keep the slot's scales),
-// and the caller's x is never written.
+//     at 4096x8192 take one round and leg A's 64 bands a half.  Clusters
+//     of 4 (62 fit: leg A's 64 bands take two rounds) and of 8 measured
+//     slower (PERF.md §6), and so did giving leg A's bands to every other
+//     cluster, to spread them over the card.  ys is
+//     double-buffered by band, so a peer's next sums never meet a leader
+//     still reading.
+//   - x lives in every CTA's shared memory: leg A reads it there and leg B
+//     takes it as u there.
+//   - Whole iteration: after the grid barrier, each CTA copies t2 (at most
+//     8 KB, from L2 with ld_cg) into its shared memory when it is at least
+//     STAGE_T2 bytes, and leg B reads it there; a shorter t2 is read from
+//     L2 by every warp, as the chain does.  The copy costs one L2 round
+//     trip before leg B starts; reading t2 from L2 costs each of leg B's
+//     warps t2's bytes again, which held the 4x8 iteration at 4096x8192 to
+//     half again the 4x4's time.  The copy measured faster from a t2 of 2
+//     KB up (2048x4096 4x8, 4096x8192) and slower below (2048x4096 4x4,
+//     512x1024).  An L2 evict_last policy on Phi and PhiT and a third chunk
+//     in flight measured no better (PERF.md §6).
+//   - Chain: phase C runs in every CTA: after the grid barrier that ends
+//     leg B, each CTA reads the new x (at most 8 KB, from L2 with ld_cg)
+//     and selects its top K into its own copy.  An iteration has two grid
+//     barriers, and no CTA waits while one other selects.  CTA 0 writes
+//     the thresholded codes out after the last iteration.  x ping-pongs
+//     between two scratch slots (leg B of iteration it writes slot it & 1,
+//     the thresholded codes go to xt and keep the slot's scales), and the
+//     caller's x is never written.
 #include <cooperative_groups.h>
 
 #include "mvm.cuh"
@@ -72,6 +77,7 @@ constexpr int CHAIN_DEPTH = Depth<CHAIN_ROWS>::PA;   // chunks in flight
 constexpr int CHAIN_CLUSTER = MV_ROWS / CHAIN_ROWS;  // CTAs sharing a band
 constexpr int CHAIN_N = 8192;  // the longest x of the chain (eligible sides)
 constexpr int CHAIN_SLOTS = CHAIN_N / (16 * MV_THREADS);  // select slots
+constexpr int STAGE_T2 = 2048;  // t2's bytes from which leg B copies it
 
 // The per-op SR seeds of each iteration (leg A mvm, axpy; leg B mvm, axpy)
 // and the four SR flags, which every iteration of a chain shares.
@@ -79,37 +85,6 @@ struct IterSeeds {
   uint32_t seed[4 * MAX_CHAIN];
   int noise[4];
 };
-
-// out = Q(u + alpha * Q(A v)) over every 64-row band of A, grid-stride.
-template <int BA, int BX>
-__device__ __forceinline__ void leg(
-    int64_t rows, const int8_t* __restrict__ a, const float* __restrict__ as,
-    const int8_t* v, const float* vs, const int8_t* u, const float* us,
-    float alpha, int8_t* out, float* os, int64_t inner, int noise1,
-    uint32_t seed1, int noise2, uint32_t seed2) {
-  for (int64_t band = blockIdx.x; band < rows / 64; band += gridDim.x) {
-    __syncthreads();  // warp 0 is done with the last band's row sums
-    mvm_band<BA, BX, true>(band, a, as, v, vs, u, us, alpha, out, os, inner,
-                           noise1, seed1, noise2, seed2);
-  }
-}
-
-template <int BA, int BX>
-__global__ void __launch_bounds__(MV_THREADS)
-iteration_kernel(const int8_t* __restrict__ phi,
-                 const float* __restrict__ phi_s,
-                 const int8_t* __restrict__ phit,
-                 const float* __restrict__ phit_s, const int8_t* y,
-                 const float* y_s, const int8_t* x, const float* x_s,
-                 int8_t* t2, float* t2_s, int8_t* out, float* out_s,
-                 int64_t m_pad, int64_t n_pad, float mu, IterSeeds sd) {
-  cgrp::grid_group grid = cgrp::this_grid();
-  leg<BA, BX>(m_pad, phi, phi_s, x, x_s, y, y_s, -1.0f, t2, t2_s, n_pad,
-              sd.noise[0], sd.seed[0], sd.noise[1], sd.seed[1]);
-  grid.sync();
-  leg<BA, BX>(n_pad, phit, phit_s, t2, t2_s, x, x_s, mu, out, out_s, m_pad,
-              sd.noise[2], sd.seed[2], sd.noise[3], sd.seed[3]);
-}
 
 // Predicated loads of a chain leg (zeros when !valid): x in this CTA's
 // shared memory, and t2, which other CTAs wrote, through ld.global.cg.
@@ -236,6 +211,57 @@ __device__ __forceinline__ void chain_leg(int64_t rows, const int8_t* a,
   }
 }
 
+// One iteration: x into this CTA's shared memory, leg A (t2 to the scratch
+// buffer), a grid barrier, leg B (the new x to out).
+template <int BA, int BX>
+__global__ void __launch_bounds__(MV_THREADS, 2)
+iteration_kernel(const int8_t* __restrict__ phi,
+                 const float* __restrict__ phi_s,
+                 const int8_t* __restrict__ phit,
+                 const float* __restrict__ phit_s, const int8_t* y,
+                 const float* y_s, const int8_t* x, const float* x_s,
+                 int8_t* t2, float* t2_s, int8_t* out, float* out_s,
+                 int64_t m_pad, int64_t n_pad, float mu, IterSeeds sd) {
+  constexpr int BO = (BA == 4 && BX == 4) ? 4 : 8;
+  __shared__ __align__(16) int8_t xc[CHAIN_N * BO / 8];  // this CTA's x
+  __shared__ float xcs[CHAIN_N / 64];
+  __shared__ __align__(16) int8_t tc[CHAIN_N * BO / 8];  // and its t2
+  __shared__ float tcs[CHAIN_N / 64];
+  __shared__ float ys[2][64];
+  cgrp::grid_group grid = cgrp::this_grid();
+  cgrp::cluster_group cluster = cgrp::this_cluster();
+  const int tid = threadIdx.x;
+  const int64_t xw = n_pad * BO / 8, nb = n_pad / 64;
+  const int64_t tw = m_pad * BO / 8, tb = m_pad / 64;
+  for (int64_t i = 16 * tid; i < xw; i += 16 * MV_THREADS)
+    *reinterpret_cast<uint4*>(xc + i) =
+        *reinterpret_cast<const uint4*>(x + i);
+  for (int64_t i = tid; i < nb; i += MV_THREADS) xcs[i] = x_s[i];
+  cluster.sync();  // x is in place, and every CTA of the cluster started
+  int parity = 0;
+  const MvmArgs pa = {phi,   phi_s,       xc,         xcs,         y,
+                      y_s,   -1.0f,       t2,         t2_s,        nullptr,
+                      n_pad, sd.noise[0], sd.seed[0], sd.noise[1], sd.seed[1]};
+  chain_leg<BA, BX, LegALoads>(m_pad, phi, phi_s, xc, xcs, pa, ys, parity);
+  grid.sync();
+  const MvmArgs pb = {phit,  phit_s,      t2,         t2_s,        xc,
+                      xcs,   mu,          out,        out_s,       nullptr,
+                      m_pad, sd.noise[2], sd.seed[2], sd.noise[3], sd.seed[3]};
+  if (tw >= STAGE_T2) {
+    for (int64_t i = 16 * tid; i < tw; i += 16 * MV_THREADS)
+      *reinterpret_cast<uint4*>(tc + i) =
+          ld_cg(reinterpret_cast<const uint4*>(t2 + i));
+    for (int64_t i = tid; i < tb; i += MV_THREADS) tcs[i] = ld_cg(t2_s + i);
+    __syncthreads();
+    // t2 now where leg A found x: LegALoads reads it from shared memory
+    chain_leg<BA, BX, LegALoads>(n_pad, phit, phit_s, tc, tcs, pb, ys,
+                                 parity);
+  } else {
+    chain_leg<BA, BX, LegBLoads>(n_pad, phit, phit_s, t2, t2_s, pb, ys,
+                                 parity);
+  }
+}
+
 // (xb0, xs0), (xb1, xs1): the two slots of n_pad elements; xt: the
 // thresholded codes.  k < 0 is GD (no phase C).  The result is (xt, or the
 // codes of slot (chain - 1) & 1, and that slot's scales).
@@ -299,22 +325,10 @@ iteration_chain_kernel(const int8_t* __restrict__ phi,
   }
 }
 
-// CTAs of a kernel that fit on the card at once: the whole-iteration
-// kernel's occupancy times the SMs; the chained kernel's co-resident
-// clusters times CHAIN_CLUSTER.
-template <int BA, int BX>
-cudaError_t co_resident(int chain, int* ctas) {
-  if (!chain) {
-    int blocks = 0, device = 0, sms = 0;
-    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, iteration_kernel<BA, BX>, MV_THREADS, 0);
-    if (e == cudaSuccess) e = cudaGetDevice(&device);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    *ctas = blocks * sms;
-    return e;
-  }
+// CTAs of a kernel that fit on the card at once: its co-resident clusters
+// times CHAIN_CLUSTER.
+template <class Kernel>
+cudaError_t resident_ctas(Kernel kernel, int* ctas) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
@@ -326,10 +340,16 @@ cudaError_t co_resident(int chain, int* ctas) {
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   int clusters = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(
-      &clusters, iteration_chain_kernel<BA, BX>, &cfg);
+  const cudaError_t e =
+      cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   *ctas = clusters * CHAIN_CLUSTER;
   return e;
+}
+
+template <int BA, int BX>
+cudaError_t co_resident(int chain, int* ctas) {
+  return chain ? resident_ctas(iteration_chain_kernel<BA, BX>, ctas)
+               : resident_ctas(iteration_kernel<BA, BX>, ctas);
 }
 
 // A cooperative launch of ``grid`` CTAs, in clusters of ``cluster``.
@@ -372,6 +392,7 @@ extern "C" int clover_iteration_occupancy(int bits_a, int bits_x, int chain,
   return (int)cudaErrorInvalidValue;
 }
 
+// ``grid``: CTAs, a multiple of CHAIN_CLUSTER; n_pad at most CHAIN_N.
 extern "C" int clover_iteration(
     const int8_t* phi, const float* phi_s, const int8_t* phit,
     const float* phit_s, const int8_t* y, const float* y_s, const int8_t* x,
@@ -379,11 +400,12 @@ extern "C" int clover_iteration(
     int64_t m_pad, int64_t n_pad, float mu, int bits_a, int bits_x,
     const uint32_t* seeds, const int* noise, int grid, void* stream) {
   clover::IterSeeds sd;
-  if (!clover::fill_seeds(&sd, seeds, noise, 1))
+  if (!clover::fill_seeds(&sd, seeds, noise, 1) ||
+      n_pad > clover::CHAIN_N || grid % clover::CHAIN_CLUSTER != 0)
     return (int)cudaErrorInvalidValue;
   cudaLaunchAttribute attr[2];
-  const cudaLaunchConfig_t cfg =
-      clover::cooperative(grid, 1, (cudaStream_t)stream, attr);
+  const cudaLaunchConfig_t cfg = clover::cooperative(
+      grid, clover::CHAIN_CLUSTER, (cudaStream_t)stream, attr);
   cudaError_t e;
   if (bits_a == 4 && bits_x == 4)
     e = cudaLaunchKernelEx(&cfg, clover::iteration_kernel<4, 4>, phi, phi_s,

@@ -28,9 +28,9 @@
 // a lane quad for a 64-byte 8-bit block), so G = 16 groups (4-bit A) or 8.
 // Group g adds the products of blocks g, g + G, g + 2G, ... in that order,
 // starting from 0; then the G group sums reduce as (g, g ^ G/2),
-// (g, g ^ G/4), ..., (g, g ^ 1).  The whole-iteration and batched kernels
-// (mvm.cuh mvm_band, mvm_batched.cu) keep the same order, so every kernel
-// gives a row the same f32 sum.
+// (g, g ^ G/4), ..., (g, g ^ 1).  The iteration kernels (iteration.cu,
+// through mvm_rows.cuh) and the batched kernel (mvm_batched.cu) keep the
+// same order, so every kernel gives a row the same f32 sum.
 //
 // Bound: device memory.  Each matrix byte is read once; x (at most 512 KB)
 // and the scales are re-read from L1/L2.  The design keeps enough bytes of
@@ -43,7 +43,7 @@
 //     CTAs where the parent had 32; R = 4 at m = 8192, 256 CTAs).  Each
 //     CTA stores its 8R row sums into the cluster leader's ys[64] through
 //     distributed shared memory, then a cluster barrier; the leader's warp
-//     0 runs the band requant and the AXPY epilogue as mvm_band does.  The
+//     0 runs the band requant and the AXPY epilogue (band_epilogue).  The
 //     f32 mode needs no cluster: each warp stores its own sums.
 //   - Split-K (a row's chunks over several CTAs) was not taken: it changes
 //     the order in which a row's blocks are added, and with it the bits of
@@ -61,8 +61,8 @@
 //       sum lo*xl + hi*xh = dp4a_us(w & 0x0F0F0F0F, xl) - 8 sum xl
 //                           + dp4a(w & 0xF0F0F0F0, xh) / 16
 //     since a low nibble is its code + 8 and a masked high nibble is 16
-//     times its signed code; the integers are those of unpack_word, so
-//     every block dot is exact and equal to mvm_band's.  x is unpacked once
+//     times its signed code; the integers are the codes themselves, so
+//     every block dot is exact, whatever the kernel.  x is unpacked once
 //     per chunk per warp and shared by the warp's R rows.
 // Hopper has no int4 tensor-core path and a GEMV has nothing to reuse, so
 // no tensor core is used.

@@ -94,8 +94,8 @@ struct BatchedArgs {
   uint32_t seed;
 };
 
-// The signed int8x4 codes of a packed word's low and high nibbles (the
-// values of mvm.cuh unpack_word): a nibble v + 0x78 stays below 0x100 in
+// The signed int8x4 codes of a packed word's low and high nibbles (as
+// mvm_rows.cuh low_codes, high_codes): a nibble v + 0x78 stays below 0x100 in
 // every byte, and ^ 0x80 recentres it (low: v - 8; high: the 4-bit two's
 // complement of v, rebased the same way after ^ 8).
 __device__ __forceinline__ int nibbles_lo(uint32_t w) {

@@ -1,8 +1,8 @@
 // The row sums and the band epilogue of the fused MVM (mvm.cu gives the
 // math, the summation order and the design), shared by mvm.cu's kernels
-// and the chained iteration kernel (iteration.cu): a warp's R rows walked
-// in the order of mvm_band (mvm.cuh) through a ring of registers, so every
-// kernel gives a row the same f32 sum.
+// and both iteration kernels (iteration.cu): a warp's R rows walked in the
+// order of mvm.cu's note through a ring of registers, so every kernel gives
+// a row the same f32 sum.
 #pragma once
 #include "mvm.cuh"
 
@@ -35,8 +35,9 @@ __device__ __forceinline__ int dp4a_us(uint32_t a, int b, int c) {
   return d;
 }
 
-// The signed int8x4 codes of a packed word's low and high nibbles, the
-// values unpack_word gives: a nibble v + 0x78 stays below 0x100 in every
+// The signed int8x4 codes of a packed word's low and high nibbles
+// (formats.py: a low nibble is its code + 8, a high nibble its code in
+// 4-bit two's complement): a nibble v + 0x78 stays below 0x100 in every
 // byte, and ^ 0x80 recentres it (low: v - 8; high: the 4-bit two's
 // complement of v, rebased the same way after ^ 8).
 __device__ __forceinline__ int low_codes(uint32_t w) {
@@ -183,7 +184,7 @@ __device__ __forceinline__ void row_sums(const int8_t* __restrict__ rows,
   uint4 xw[PX][XW];
   float sa[PX], sx[PX];
   // Loads of chunk c into the rings (zeros past the row's last block, which
-  // add exactly +0 below, as mvm_band's guard does).
+  // add exactly +0 below).
   auto load_a = [&](uint4(&dst)[R], int64_t c) {
     const bool valid = c * GROUPS + group < nb;
 #pragma unroll
@@ -270,8 +271,8 @@ __device__ __forceinline__ void row_sums(const int8_t* __restrict__ rows,
   }
 }
 
-// The band requant and scaleAndAdd epilogue of mvm_band (mvm.cuh), op for
-// op, run by one warp on the band's 64 row sums ys.
+// The band requant and scaleAndAdd epilogue of the fused MVM (mvm.cu's
+// note), run by one warp on the band's 64 row sums ys.
 template <int BA, int BX>
 __device__ __forceinline__ void band_epilogue(int64_t band, const float* ys,
                                               const MvmArgs p) {

@@ -12,9 +12,8 @@
 //     ld.global.cs, a lane's 16 bytes of a chunk where row_sums reads them.
 //     Its time is the floor of the MVM's own geometry, which -p reports
 //     the MVM rows against;
-//   - probe_kernel (dma_probe, salted_probe) through the CTA layout of
-//     mvm.cuh mvm_band (the whole-iteration kernels'): one CTA per 64-row
-//     band, MV_THREADS threads, 8 warps x 8 rows, per 512-byte chunk of a
+//   - probe_kernel (dma_probe, salted_probe) one CTA per 64-row band,
+//     MV_THREADS threads, 8 warps x 8 rows, per 512-byte chunk of a
 //     row one 16-byte load per lane, so each lane keeps 8 loads in flight.
 //     Its time is the floor for exactly that geometry, with its limit of
 //     rows/64 CTAs.

@@ -10,7 +10,7 @@ import time.
 
 from .axpy import axpy_cuda
 from .dispatch import SEED_GOLD, SEED_OP, on_cuda, seed_from, wrap_i32
-from .dot import dot_cuda, dot_plain, dot_terms
+from .dot import dot_cuda, dot_plain, dot_plain_ordered, dot_terms
 from .iteration import (
     iteration_chain_cuda, iteration_chain_eligible, iteration_chain_plain,
     iteration_cuda, iteration_eligible, iteration_plain,
@@ -85,7 +85,7 @@ __all__ = [
     "quantize_mat_cuda", "quantize_mat_plain",
     "restore_vec_cuda", "restore_vec_plain",
     "restore_mat_cuda", "restore_mat_plain",
-    "dot_cuda", "dot_plain", "dot_terms",
+    "dot_cuda", "dot_plain", "dot_plain_ordered", "dot_terms",
     "hist4_cuda", "hist4_plain", "mask4_cuda", "mask4_plain",
     "transpose4_cuda", "transpose4_plain",
     "transpose8_cuda", "transpose8_plain",

@@ -37,7 +37,7 @@ SIGNATURES = {
                             _P),
     "clover_restore_vec": (_P, _P, _P, _I64, _I32, _P),
     "clover_restore_mat": (_P, _P, _P, _I64, _I64, _I32, _P),
-    "clover_dot": (_P, _P, _P, _P, _P, _P, _I64, _I32, _P),
+    "clover_dot": (_P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P),
     "clover_hist4": (_P, _P, _I64, _P),
     "clover_mask4": (_P, _P, _P, _P, _P, _P, _I64, _P),
     "clover_transpose": (_P, _P, _I64, _I64, _I32, _P),

@@ -19,11 +19,11 @@ PhiT (its transpose), then y and x of the output class (4-bit for 4x4,
 8-bit for 4x8); results are pairs too.
 
 The kernels are cooperative launches: every CTA must be resident at once
-for the grid barriers.  The grid is the larger leg's band count, capped by
-the CTAs that fit on the card (computed once per device and kernel); the
-chained kernel runs in clusters of CHAIN_CLUSTER CTAs sharing each band,
-so its grid is that many CTAs per band, in whole clusters.  A grid that
-does not fit raises; nothing retries through the unfused path.
+for the grid barriers.  Both run in clusters of CHAIN_CLUSTER CTAs sharing
+each band, so the grid is that many CTAs per band of the larger leg, capped
+by the CTAs that fit on the card (computed once per device and kernel), in
+whole clusters.  A grid that does not fit raises; nothing retries through
+the unfused path.
 """
 
 from __future__ import annotations
@@ -110,9 +110,8 @@ def iteration_chain_plain(bits_a: int, bits_x: int, phi, phit, y, x,
 @functools.cache
 def co_resident(device_index: int, bits_a: int, bits_x: int,
                 chained: bool) -> int:
-    """CTAs of a kernel that fit on the card at once: the whole-iteration
-    kernel's occupancy x SMs, the chained kernel's co-resident clusters x
-    CHAIN_CLUSTER."""
+    """CTAs of a kernel that fit on the card at once: its co-resident
+    clusters x CHAIN_CLUSTER."""
     device = torch.device("cuda", device_index)
     ctas = ctypes.c_int(0)
     _build.call("clover_iteration_occupancy", device, bits_a, bits_x,
@@ -122,23 +121,23 @@ def co_resident(device_index: int, bits_a: int, bits_x: int,
 
 def launch_grid(device: torch.device, bits_a: int, bits_x: int,
                 chained: bool, bands: int, grid: int | None = None) -> int:
-    """The cooperative grid in CTAs: ``grid``, or one CTA per band (the
-    chained kernel: a cluster of CHAIN_CLUSTER per band) capped by what
-    fits, in whole clusters; raise when it does not fit."""
+    """The cooperative grid in CTAs: ``grid``, or a cluster of
+    CHAIN_CLUSTER CTAs per band capped by what fits, in whole clusters;
+    raise when it does not fit."""
     capacity = co_resident(device.index, bits_a, bits_x, chained)
-    unit = CHAIN_CLUSTER if chained else 1
+    c = CHAIN_CLUSTER
     if grid is None:
-        grid = min(bands * unit, capacity // unit * unit)
-    if grid % unit:
-        raise ValueError(f"grid {grid}: the chained iteration kernel runs "
-                         f"in whole clusters of {unit} CTAs")
+        grid = min(bands * c, capacity // c * c)
+    if grid % c:
+        raise ValueError(f"grid {grid}: the iteration kernels run in whole "
+                         f"clusters of {c} CTAs")
     if not 1 <= grid <= capacity:
         kind = "chained iteration" if chained else "iteration"
         raise RuntimeError(
             f"cooperative launch of {grid} CTAs of the {bits_a}x{bits_x} "
             f"{kind} kernel: {capacity} fit on {device} at once "
-            f"(occupancy x SMs), and the grid barrier needs every CTA "
-            f"resident")
+            f"(co-resident clusters x CTAs), and the grid barrier needs "
+            f"every CTA resident")
     return grid
 
 
@@ -181,6 +180,9 @@ def iteration_cuda(bits_a: int, bits_x: int, phi, phit, y, x, mu: float,
     m_pad, n_pad, device = _operands(bits_a, bits_x, phi, phit, y, x)
     if len(seeds) != 4:
         raise ValueError(f"expected 4 seeds, got {len(seeds)}")
+    if n_pad > SIDE_MAX:
+        raise ValueError(f"x of {n_pad} padded elements: the iteration "
+                         f"kernels take at most {SIDE_MAX}")
     grid = launch_grid(device, bits_a, bits_x, False,
                        max(m_pad, n_pad) // BLOCK, grid)
     xw, yw = n_pad * bits_x // 8, m_pad * bits_x // 8
@@ -214,8 +216,8 @@ def iteration_chain_cuda(bits_a: int, bits_x: int, phi, phit, y, x,
     if k is not None and not 0 <= k < 2 ** 31:
         raise ValueError(f"k={k} out of range")
     if n_pad > SIDE_MAX:
-        raise ValueError(f"x of {n_pad} padded elements: the chained kernel "
-                         f"takes at most {SIDE_MAX}")
+        raise ValueError(f"x of {n_pad} padded elements: the iteration "
+                         f"kernels take at most {SIDE_MAX}")
     grid = launch_grid(device, bits_a, bits_x, True,
                        max(m_pad, n_pad) // BLOCK, grid)
     xw, yw, nb = n_pad * bits_x // 8, m_pad * bits_x // 8, n_pad // BLOCK

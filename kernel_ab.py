@@ -1,5 +1,5 @@
-"""Time the MVM legs, the set-up kernels, the thresholds and the iteration
-kernels of two checkouts of clover_tpu_torch on one card.
+"""Time the MVM legs, the set-up kernels, the thresholds, the iteration
+kernels and the dot of two checkouts of clover_tpu_torch on one card.
 
     python3 kernel_ab.py OTHER_TREE
     python3 kernel_ab.py --sass OTHER_TREE
@@ -16,12 +16,15 @@ copies past the 50 MB L2), the main path's set-up kernels at 8192x16384
 csrc/transpose.cu, 4- and 8-bit), the exact thresholds (csrc/threshold.cu: 4-
 and 8-bit at the main path's n = 16384, K = 4096, single and stacked B =
 8, and the 4-bit radix select at n = 2^19, K = 64), the whole-iteration
-and chained (4 iterations) kernels of the 4096x8192 IHT, 4x4 and 4x8, SR
-on, and the batched MVM
+kernel of the small IHT at 4096x8192, 2048x4096 and 512x1024 and the
+chained one (4 iterations) at 4096x8192, 4x4 and 4x8, SR on, the dot
+(csrc/dot.cu: 4- and 8-bit at n = 2^24 and 16384 back to back, and at 2^24
+rotating through 256 MB of copies, past the 50 MB L2), and the batched MVM
 (csrc/mvm_batched.cu: 4x4, 4x8 and 8x8 at 8192x16384 with B = 8, 4x4 at
 16384x16384 with B = 2, 8 and 32, SR on; the f32-output mode, 4x4 at
-8192x16384 with B = 8), each set-up, threshold, iteration and batched leg first
-held bit for bit to its plain version, as chip_smoke.py's phase 2 does:
+8192x16384 with B = 8), each set-up, threshold, iteration, dot and batched
+leg first held bit for bit to its plain version (the dot to its plain
+version in the kernel's order), as chip_smoke.py's phase 2 does:
 the median of 5 windows
 of 20 back-to-back launches queued behind a spin kernel.  It also times
 the host's side of one mvm4_cuda call on a 128x256 problem ("mvm4
@@ -41,9 +44,10 @@ untraced 4-bit 8192x16384 solve (iterations/s, the wall ms of 5 whole
 solves from quantize(Phi) to the result, set-up included, and one whole
 solve's device ms by torch.profiler), phase 5 (the batched
 IHT, and its device time per batched iteration by torch.profiler), phase
-6 (the MVMServer), phase 7 (the small IHT: chained iterations/s at
-4096x8192 and 2048x4096, 4x4 and 4x8) and phase 10 (the large-n 4-bit
-IHT, 2048x524288), then phase 14 (the sharded path
+6 (the MVMServer), phase 7 (the small IHT: chained and traced
+iterations/s at 4096x8192 and 2048x4096, 4x4 and 4x8), phase 8 (the wall
+time of a deterministic -a), phase 9 (the wall time of -v) and phase 10
+(the large-n 4-bit IHT, 2048x524288), then phase 14 (the sharded path
 on 8 ranks sharing the card) once in each tree, and prints each tree's
 median of every rate over its runs.  The batching and serving paths are
 host-bound where their kernels are fast, and one run of them spreads by
@@ -75,8 +79,10 @@ from pathlib import Path
 
 M, N, K = 8192, 16384, 4096
 MU = 0.0002138596817016602      # the tuned 4-bit mu at this size
-SMALL = (4096, 8192)            # the small path's iteration kernels
+SMALL = ((4096, 8192), (2048, 4096), (512, 1024))  # the iteration kernels'
 SMALL_MU = 0.0005050158681869508
+DOT_SIZES = (1 << 24, 16384)    # the dot: chip_smoke.py's timed sizes
+DOT_RING_BYTES = 256 << 20      # rotating copies of a dot's operands
 LARGE = (2048, 524288)          # the large-n IHT (chip_smoke.py phase 10)
 SHARD = (4096, 4096)            # a 2x4 mesh's block of the M x N matrix
 BATCHED = 8                     # the batched IHT's B (chip_smoke.py phase 5)
@@ -97,9 +103,9 @@ E2E_RATES = {
     "phase 14 sharded IHT": r"gloo: ([\d.]+) iterations/s",
     "phase 14 sharded server 4x4": r"MVMServer 4x4 .* ([\d.]+) requests/s",
 }
-# phase 7's header line of a size and mode, and its chained rate below it
+# phase 7's header line of a size and mode, and its rates below it
 SMALL_HEADER = re.compile(r"^  (4x\d) (\d+x\d+) K=")
-SMALL_CHAINED = re.compile(r"^    chained\s+([\d.]+) iterations/s")
+SMALL_RATE = re.compile(r"^    (chained|traced)\s+([\d.]+) iterations/s")
 SPIN_CYCLES = 1 << 23
 
 
@@ -239,27 +245,70 @@ def threshold_legs(tt, kn, torch) -> dict:
 
 
 def iteration_legs(tt, kn, torch) -> dict:
-    """Leg name -> (one whole-iteration or chained (4 iterations, k = n/4)
-    launch of the 4096x8192 IHT, 4x4 and 4x8, SR on; its plain version)."""
+    """Leg name -> (one whole-iteration launch of the small IHT at each of
+    SMALL's sizes, or a chained one (4 iterations, k = n/4) at the first,
+    4x4 and 4x8, SR on; its plain version)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    m, n = SMALL
-    q = tt.quantize(torch.rand(m, n, generator=gen, device="cuda") * 2 - 1, 4)
-    qt = tt.transpose(q)
-    y = torch.rand(m, generator=gen, device="cuda") * 2 - 1
-    x = torch.randn(n, generator=gen, device="cuda")
     out = {}
-    for bits_x in (4, 8):
-        ops = [(v.codes, v.scales) for v in (
-            q, qt, tt.quantize(y, bits_x), tt.quantize(x, bits_x))]
-        one = (4, bits_x, *ops, SMALL_MU, [1, 2, 3, 4], (True,) * 4)
-        chain = (4, bits_x, *ops, SMALL_MU, n // 4, list(range(16)),
-                 (True,) * 4)
-        out[f"iteration 4x{bits_x}"] = (
-            functools.partial(kn.iteration_cuda, *one),
-            functools.partial(kn.iteration_plain, *one))
-        out[f"iteration_chain 4x{bits_x}"] = (
-            functools.partial(kn.iteration_chain_cuda, *chain),
-            functools.partial(kn.iteration_chain_plain, *chain))
+    for m, n in SMALL:
+        q = tt.quantize(torch.rand(m, n, generator=gen, device="cuda") * 2
+                        - 1, 4)
+        qt = tt.transpose(q)
+        y = torch.rand(m, generator=gen, device="cuda") * 2 - 1
+        x = torch.randn(n, generator=gen, device="cuda")
+        size = "" if (m, n) == SMALL[0] else f" {m}x{n}"
+        for bits_x in (4, 8):
+            ops = [(v.codes, v.scales) for v in (
+                q, qt, tt.quantize(y, bits_x), tt.quantize(x, bits_x))]
+            one = (4, bits_x, *ops, SMALL_MU, [1, 2, 3, 4], (True,) * 4)
+            out[f"iteration 4x{bits_x}{size}"] = (
+                functools.partial(kn.iteration_cuda, *one),
+                functools.partial(kn.iteration_plain, *one))
+            if (m, n) == SMALL[0]:
+                chain = (4, bits_x, *ops, SMALL_MU, n // 4, list(range(16)),
+                         (True,) * 4)
+                out[f"iteration_chain 4x{bits_x}"] = (
+                    functools.partial(kn.iteration_chain_cuda, *chain),
+                    functools.partial(kn.iteration_chain_plain, *chain))
+    return out
+
+
+def dot_legs(tt, kn, torch) -> dict:
+    """Leg name -> (one dot launch at each of DOT_SIZES, 4- and 8-bit, back
+    to back, and at 2^24 also rotating through copies past the 50 MB L2;
+    its plain version in the kernel's order, dot_plain_ordered).  A tree
+    without that version (whose kernel sums in no plain version's order)
+    holds its kernel to a second call and within 1e-5 of sum |t_b| of
+    dot_plain."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ordered = getattr(kn, "dot_plain_ordered", None)
+    out = {}
+    for n in DOT_SIZES:
+        for bits in (4, 8):
+            ops = tuple(t for q in (tt.quantize(torch.rand(
+                n, generator=gen, device="cuda") * 2 - 1, bits,
+                generator=gen) for _ in range(2))
+                for t in (q.codes, q.scales)) + (bits,)
+            call = functools.partial(kn.dot_cuda, *ops)
+            if ordered is not None:
+                plain = functools.partial(ordered, *ops)
+            else:
+                def plain(ops=ops, call=call):
+                    got, terms = call(), kn.dot_terms(*ops)
+                    if float((got - terms.sum()).abs()) > \
+                            1e-5 * float(terms.abs().sum()):
+                        raise AssertionError("dot: kernel far from plain")
+                    return got
+            name = f"dot {bits}-bit n={'2^24' if n == 1 << 24 else n}"
+            out[name] = (call, plain)
+            if n == 1 << 24:
+                per = sum(t.nbytes for t in ops[:4])
+                ring = [[t.clone() for t in ops[:4]]
+                        for _ in range(-(-DOT_RING_BYTES // per))]
+                turn = itertools.count()
+                out[f"{name} rotating"] = (
+                    lambda ring=ring, turn=turn, bits=bits: kn.dot_cuda(
+                        *ring[next(turn) % len(ring)], bits), plain)
     return out
 
 
@@ -330,6 +379,7 @@ def child(tree: str) -> None:
     checked = {**setup_legs(tt, kn, torch),
                **threshold_legs(tt, kn, torch),
                **iteration_legs(tt, kn, torch),
+               **dot_legs(tt, kn, torch),
                **batched_legs(tt, kn, torch)}
     for name, (call, plain) in checked.items():
         if not same(call(), plain(), torch):
@@ -448,23 +498,33 @@ def whole_solve_device_ms(cs, phi, y) -> float:
 
 
 def small_rates(text: str) -> dict:
-    """Phase 7's chained iterations/s by mode and size."""
+    """Phase 7's chained and traced iterations/s by mode and size."""
     rates, head = {}, None
     for line in text.splitlines():
         found = SMALL_HEADER.match(line)
         if found:
             head = f"{found.group(1)} {found.group(2)}"
-        found = SMALL_CHAINED.match(line)
+        found = SMALL_RATE.match(line)
         if found and head:
-            rates[f"phase 7 chained {head}"] = [float(found.group(1))]
+            rates[f"phase 7 {found.group(1)} {head}"] = [
+                float(found.group(2))]
     return rates
+
+
+def cli_wall_s(cs, argv) -> float:
+    """Wall seconds of one ``python -m clover_tpu_torch`` run in this
+    process (chip_smoke.py's cli_output, which raises unless it exits 0)."""
+    t0 = time.perf_counter()
+    cs.cli_output(argv)
+    return time.perf_counter() - t0
 
 
 def e2e_child(tree: str, sharded: bool) -> None:
     """Run ``tree``'s chip_smoke.py phases 3 (the untraced 4-bit solve and
-    its whole solves), 5, 6, 7 and 10 once (or, ``sharded``, phase 14) and
-    time the batched IHT's device work; print one JSON line of the rates
-    each phase printed."""
+    its whole solves), 5, 6, 7, 8 (the wall time of -a, deterministic), 9
+    (the wall time of -v on the card) and 10 once (or, ``sharded``, phase
+    14) and time the batched IHT's device work; print one JSON line of the
+    rates each phase printed."""
     import contextlib
     import io
     sys.path[0] = tree
@@ -496,6 +556,9 @@ def e2e_child(tree: str, sharded: bool) -> None:
             with contextlib.redirect_stdout(small):
                 cs.phase_small_iht()
             extra.update(small_rates(small.getvalue()))
+            extra["phase 8 -a deterministic wall s"] = [cli_wall_s(
+                cs, ["-a", "--epochs", str(cs.EPOCHS), "--no-sr"])]
+            extra["phase 9 -v wall s"] = [cli_wall_s(cs, ["-v"])]
             cs.phase_large_iht(cs.Report())
     rates = {name: [float(v) for v in re.findall(pattern, out.getvalue(),
                                                  re.MULTILINE)]
@@ -506,8 +569,8 @@ def e2e_child(tree: str, sharded: bool) -> None:
 
 def e2e(trees: dict) -> None:
     """E2E_ROUNDS rounds of A, B, B, A runs of e2e_child (phases 3, 5, 6,
-    7 and 10), then phase 14 once in A and in B; each tree's median of
-    every rate."""
+    7, 8, 9 and 10), then phase 14 once in A and in B; each tree's median
+    of every rate."""
     import statistics
     runs = {"A": {}, "B": {}}
     order = [(label, False) for _ in range(E2E_ROUNDS) for label in "ABBA"]

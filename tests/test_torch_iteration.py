@@ -267,38 +267,31 @@ def test_solver_keeps_the_unfused_path_where_not_eligible(rng, monkeypatch):
 
 
 def test_cooperative_grid_guard(monkeypatch):
-    """The grid is the bands capped by the co-resident CTAs -- for the
-    chained kernel a cluster of CHAIN_CLUSTER CTAs per band, in whole
-    clusters; a grid that does not fit raises with the numbers, and
-    nothing falls back."""
+    """Both kernels' grid is a cluster of CHAIN_CLUSTER CTAs per band capped
+    by the co-resident CTAs, in whole clusters; a grid that does not fit
+    raises with the numbers, and nothing falls back."""
     capacity = {"n": 3}
     monkeypatch.setattr(fused, "co_resident",
                         lambda *_a: capacity["n"])
     dev = torch.device("cuda", 0)
-    assert fused.launch_grid(dev, 4, 4, False, bands=16) == 3
-    assert fused.launch_grid(dev, 4, 8, False, bands=2) == 2
-    assert fused.launch_grid(dev, 4, 4, False, bands=16, grid=3) == 3
-    with pytest.raises(RuntimeError, match=r"cooperative launch of 5 CTAs "
-                       r"of the 4x4 iteration kernel: 3 fit on cuda:0 at "
-                       r"once"):
-        fused.launch_grid(dev, 4, 4, False, bands=16, grid=5)
     c = fused.CHAIN_CLUSTER
-    capacity["n"] = 7 * c + 1
-    assert fused.launch_grid(dev, 4, 4, True, bands=16) == 7 * c
-    assert fused.launch_grid(dev, 4, 8, True, bands=2) == 2 * c
-    assert fused.launch_grid(dev, 4, 4, True, bands=16, grid=c) == c
-    with pytest.raises(ValueError, match=f"whole clusters of {c} CTAs"):
-        fused.launch_grid(dev, 4, 4, True, bands=16, grid=c + 1)
-    with pytest.raises(RuntimeError, match=rf"cooperative launch of {8 * c} "
-                       rf"CTAs of the 4x4 chained iteration kernel: "
-                       rf"{7 * c + 1} fit on cuda:0 at once"):
-        fused.launch_grid(dev, 4, 4, True, bands=16, grid=8 * c)
-    capacity["n"] = c - 1
-    with pytest.raises(RuntimeError, match=f"{c - 1} fit on cuda:0"):
-        fused.launch_grid(dev, 4, 4, True, bands=16)
-    capacity["n"] = 0
-    with pytest.raises(RuntimeError, match="0 fit on cuda:0"):
-        fused.launch_grid(dev, 4, 8, False, bands=16)
+    for chained, kind in ((False, "iteration"), (True, "chained iteration")):
+        capacity["n"] = 7 * c + 1
+        assert fused.launch_grid(dev, 4, 4, chained, bands=16) == 7 * c
+        assert fused.launch_grid(dev, 4, 8, chained, bands=2) == 2 * c
+        assert fused.launch_grid(dev, 4, 4, chained, bands=16, grid=c) == c
+        with pytest.raises(ValueError, match=f"whole clusters of {c} CTAs"):
+            fused.launch_grid(dev, 4, 4, chained, bands=16, grid=c + 1)
+        with pytest.raises(RuntimeError, match=rf"cooperative launch of "
+                           rf"{8 * c} CTAs of the 4x4 {kind} kernel: "
+                           rf"{7 * c + 1} fit on cuda:0 at once"):
+            fused.launch_grid(dev, 4, 4, chained, bands=16, grid=8 * c)
+        capacity["n"] = c - 1
+        with pytest.raises(RuntimeError, match=f"{c - 1} fit on cuda:0"):
+            fused.launch_grid(dev, 4, 4, chained, bands=16)
+        capacity["n"] = 0
+        with pytest.raises(RuntimeError, match="0 fit on cuda:0"):
+            fused.launch_grid(dev, 4, 8, chained, bands=16)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors(rng):
@@ -339,6 +332,42 @@ def test_chain_geometry_covers_every_row_once():
     assert cluster == fused.CHAIN_CLUSTER
     for bands in (1, 8, 16, 64, 128):
         for clusters in (1, 7, 64, 66):
+            cover = np.zeros((bands, 64), np.int64)
+            for cta in range(clusters * cluster):
+                rank = cta % cluster
+                for band in range(cta // cluster, bands, clusters):
+                    for w in range(warps):
+                        first = rank * warps * rows + w * rows
+                        cover[band, first:first + rows] += 1
+            assert (cover == 1).all(), (bands, clusters)
+
+
+# the H100's co-resident CTAs of both iteration kernels (132 SMs, 2 CTAs an
+# SM; chip_smoke.py phase 2 prints them)
+H100_CTAS = 264
+
+
+@pytest.mark.parametrize("m,n", [(512, 1024), (2048, 4096), (4096, 8192)])
+def test_iteration_geometry_covers_every_row_once(monkeypatch, m, n):
+    """csrc/iteration.cu iteration_kernel runs both legs through chain_leg:
+    every (band, row) of leg A (Phi's m / 64 bands) and of leg B (PhiT's
+    n / 64) is summed by exactly one warp, at 1, 7 and the default number
+    of clusters (launch_grid's on the H100's co-resident CTAs)."""
+    src = (CSRC / "iteration.cu").read_text()
+    body = src[src.index("iteration_kernel(const"):
+               src.index("iteration_chain_kernel(const")]
+    assert body.count("chain_leg<BA, BX, LegALoads>(m_pad, phi,") == 1
+    assert body.count("chain_leg<BA, BX, Leg") == 3   # leg B: t2 copied or not
+    rows = int(_constant("iteration.cu", "CHAIN_ROWS"))
+    warps = int(_constant("mvm.cuh", "MV_WARPS"))
+    cluster = 64 // warps // rows
+    assert cluster == fused.CHAIN_CLUSTER
+    monkeypatch.setattr(fused, "co_resident", lambda *_a: H100_CTAS)
+    default = fused.launch_grid(torch.device("cuda", 0), 4, 4, False,
+                                max(m, n) // 64) // cluster
+    assert default == min(max(m, n) // 64, H100_CTAS // cluster)
+    for clusters in (1, 7, default):
+        for bands in (m // 64, n // 64):
             cover = np.zeros((bands, 64), np.int64)
             for cta in range(clusters * cluster):
                 rank = cta % cluster
