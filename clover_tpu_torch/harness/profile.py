@@ -19,7 +19,8 @@ from .timing import gbs, pct_roofline
 def trace(logdir: str = "build/clover_tpu_torch_trace"):
     """Profile a block, CPU activity and, where a card is present, CUDA
     activity; the Chrome trace goes into ``logdir``.  Yields the profiler
-    (``key_averages()`` sums device time by kernel):
+    (``key_averages()`` sums device time by kernel); a region inside it
+    is a ``tracing.span``:
 
         with profile.trace("build/t") as prof:
             run_step()
@@ -32,11 +33,6 @@ def trace(logdir: str = "build/clover_tpu_torch_trace"):
         yield prof
     prof.export_chrome_trace(os.path.join(
         logdir, f"trace-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}.json"))
-
-
-def annotate(name: str):
-    """Named region inside a trace."""
-    return torch.profiler.record_function(name)
 
 
 def roofline_report(entries, device="cuda") -> str:

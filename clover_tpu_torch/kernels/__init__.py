@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels (CUDA C++ in ``csrc/``) with their plain
 torch versions.
 
-Each ``*_cuda`` wrapper checks its operands, allocates the outputs, launches
-on the current stream and adds one to its ``launches`` count.  Each
+Each ``*_cuda`` wrapper checks its operands, allocates the outputs and
+launches on the current stream; its decorator (``tracing.kernel``, with the
+wrapper's key in ``KERNELS``) counts the call in the wrapper's ``launches``
+and opens the span ``clover.kernel.<key>`` while a profiler records.  Each
 ``*_plain`` function computes the same with torch ops on any device; the ops
 take it for CPU tensors only.  Nothing here builds or loads CUDA code at
 import time.
@@ -70,6 +72,7 @@ KERNELS = {
 
 
 def launch_counts() -> dict[str, int]:
+    """Calls that returned, per kernel, since import or the last reset."""
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 

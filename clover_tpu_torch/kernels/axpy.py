@@ -17,9 +17,11 @@ from __future__ import annotations
 import torch
 
 from ..formats import BLOCK
+from .. import tracing
 from . import _build
 
 
+@tracing.kernel("axpy")
 def axpy_cuda(u_codes, u_scales, v_codes, v_scales, alpha: float, bits: int,
               seed: int = 0, noise: bool = False):
     """Kernel form of :func:`~clover_tpu_torch.kernels.mvm.axpy_plain`."""
@@ -40,8 +42,4 @@ def axpy_cuda(u_codes, u_scales, v_codes, v_scales, alpha: float, bits: int,
     _build.launch("clover_axpy", device, P(u_codes), P(u_scales), P(v_codes),
                   P(v_scales), float(alpha), P(out), P(out_scales), n, bits,
                   int(noise), seed & 0xFFFFFFFF)
-    axpy_cuda.launches += 1
     return out, out_scales
-
-
-axpy_cuda.launches = 0

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from ..formats import BLOCK, unpack_nibbles
 from ..ops import _core
+from .. import tracing
 from . import _build
 
 TILE = 256                # csrc/dot.cu DOT_TILE: blocks of a tile
@@ -96,6 +97,7 @@ def _ticket(device_index: int, stream: int) -> torch.Tensor:
                        device=torch.device("cuda", device_index))
 
 
+@tracing.kernel("dot")
 def dot_cuda(u_codes: torch.Tensor, u_scales: torch.Tensor,
              v_codes: torch.Tensor, v_scales: torch.Tensor,
              bits: int, grid: int | None = None) -> torch.Tensor:
@@ -125,8 +127,4 @@ def dot_cuda(u_codes: torch.Tensor, u_scales: torch.Tensor,
     _build.launch("clover_dot", dev, P(u_codes), P(v_codes), P(u_scales),
                   P(v_scales), P(partial), P(ticket), P(out), n_pad, bits,
                   grid)
-    dot_cuda.launches += 1
     return out
-
-
-dot_cuda.launches = 0

@@ -34,6 +34,7 @@ import functools
 import torch
 
 from ..formats import BLOCK, QMat4, QVec4, QVec8
+from .. import tracing
 from . import _build
 from .mvm import mvm4_plain, mvm8_plain
 from .threshold import threshold4_plain, threshold8_plain
@@ -173,6 +174,7 @@ def _seed_args(seeds, noise):
     return words, flags
 
 
+@tracing.kernel("iteration")
 def iteration_cuda(bits_a: int, bits_x: int, phi, phit, y, x, mu: float,
                    seeds=(0, 0, 0, 0), noise=(False,) * 4,
                    grid: int | None = None):
@@ -199,10 +201,10 @@ def iteration_cuda(bits_a: int, bits_x: int, phi, phit, y, x, mu: float,
                   P(t2), P(t2_s), P(out), P(out_s), m_pad, n_pad, float(mu),
                   bits_a, bits_x, ctypes.addressof(words),
                   ctypes.addressof(flags), grid)
-    iteration_cuda.launches += 1
     return out, out_s
 
 
+@tracing.kernel("iteration_chain")
 def iteration_chain_cuda(bits_a: int, bits_x: int, phi, phit, y, x,
                          mu: float, k, seeds, noise=(False,) * 4,
                          grid: int | None = None):
@@ -238,9 +240,4 @@ def iteration_chain_cuda(bits_a: int, bits_x: int, phi, phit, y, x,
                   m_pad, n_pad, float(mu), -1 if k is None else int(k),
                   chain, bits_a, bits_x, ctypes.addressof(words),
                   ctypes.addressof(flags), grid)
-    iteration_chain_cuda.launches += 1
     return (last if k is None else xt), last_s
-
-
-iteration_cuda.launches = 0
-iteration_chain_cuda.launches = 0

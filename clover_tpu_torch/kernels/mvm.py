@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ..formats import BLOCK, cdiv, unpack_nibbles
 from ..ops import _core
+from .. import tracing
 from . import _build, philox
 from .quantize import quantize_vec_plain
 
@@ -180,15 +181,14 @@ def mvm4_plain(a_codes, a_scales, x_codes, x_scales, u_codes=None,
                       u_scales, alpha, seed1, noise1, seed2, noise2)
 
 
+@tracing.kernel("mvm4")
 def mvm4_cuda(a_codes, a_scales, x_codes, x_scales, u_codes=None,
               u_scales=None, alpha: float = 0.0, seed1: int = 0,
               noise1: bool = False, seed2: int = 0, noise2: bool = False):
     """Kernel form of :func:`mvm4_plain`: one launch, epilogue on when
     ``u_codes`` is given."""
-    out = _mvm_cuda(4, 4, a_codes, a_scales, x_codes, x_scales, u_codes,
-                    u_scales, alpha, seed1, noise1, seed2, noise2)
-    mvm4_cuda.launches += 1
-    return out
+    return _mvm_cuda(4, 4, a_codes, a_scales, x_codes, x_scales, u_codes,
+                     u_scales, alpha, seed1, noise1, seed2, noise2)
 
 
 def mvm8_plain(bits_a: int, a_codes, a_scales, x_codes, x_scales,
@@ -200,15 +200,14 @@ def mvm8_plain(bits_a: int, a_codes, a_scales, x_codes, x_scales,
                       u_codes, u_scales, alpha, seed1, noise1, seed2, noise2)
 
 
+@tracing.kernel("mvm8")
 def mvm8_cuda(bits_a: int, a_codes, a_scales, x_codes, x_scales,
               u_codes=None, u_scales=None, alpha: float = 0.0,
               seed1: int = 0, noise1: bool = False, seed2: int = 0,
               noise2: bool = False):
     """Kernel form of :func:`mvm8_plain`."""
-    out = _mvm_cuda(bits_a, 8, a_codes, a_scales, x_codes, x_scales, u_codes,
-                    u_scales, alpha, seed1, noise1, seed2, noise2)
-    mvm8_cuda.launches += 1
-    return out
+    return _mvm_cuda(bits_a, 8, a_codes, a_scales, x_codes, x_scales,
+                     u_codes, u_scales, alpha, seed1, noise1, seed2, noise2)
 
 
 def mvm_f32_plain(bits_a: int, bits_x: int, a_codes, a_scales, x_codes,
@@ -218,6 +217,7 @@ def mvm_f32_plain(bits_a: int, bits_x: int, a_codes, a_scales, x_codes,
                                         bits_a, bits_x), groups(bits_a))
 
 
+@tracing.kernel("mvm_f32")
 def mvm_f32_cuda(bits_a: int, bits_x: int, a_codes, a_scales, x_codes,
                  x_scales) -> torch.Tensor:
     """Kernel form of :func:`mvm_f32_plain`: one launch; sides multiples
@@ -229,10 +229,4 @@ def mvm_f32_cuda(bits_a: int, bits_x: int, a_codes, a_scales, x_codes,
     _build.launch("clover_mvm_f32", device, P(a_codes), P(a_scales),
                   P(x_codes), P(x_scales), P(out), m_pad, n_pad, bits_a,
                   bits_x, rows_per_warp(m_pad, _sm_count(device.index)))
-    mvm_f32_cuda.launches += 1
     return out
-
-
-mvm4_cuda.launches = 0
-mvm8_cuda.launches = 0
-mvm_f32_cuda.launches = 0

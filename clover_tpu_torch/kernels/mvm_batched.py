@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..formats import BLOCK
+from .. import tracing
 from . import _build
 from .dispatch import wrap_i32
 from .mvm import _mvm_plain, check_operands, mvm_f32_plain
@@ -53,6 +54,7 @@ def mvm_batched_plain(bits_a: int, bits_x: int, a_codes, a_scales, x_codes,
             torch.stack([s for _, s in outs]))
 
 
+@tracing.kernel("mvm_batched")
 def mvm_batched_cuda(bits_a: int, bits_x: int, a_codes, a_scales, x_codes,
                      x_scales, seed: int = 0, noise: bool = False):
     """Kernel form of :func:`mvm_batched_plain`: one launch for
@@ -69,7 +71,6 @@ def mvm_batched_cuda(bits_a: int, bits_x: int, a_codes, a_scales, x_codes,
     _build.launch("clover_mvm_batched", device, P(a_codes), P(a_scales),
                   P(x_codes), P(x_scales), P(out), P(out_scales), m_pad,
                   n_pad, b, bits_a, bits_x, int(noise), seed & 0xFFFFFFFF)
-    mvm_batched_cuda.launches += 1
     return out, out_scales
 
 
@@ -81,6 +82,7 @@ def mvm_batched_f32_plain(bits_a: int, bits_x: int, a_codes, a_scales,
                         for xc, xs in zip(x_codes, x_scales)])
 
 
+@tracing.kernel("mvm_batched_f32")
 def mvm_batched_f32_cuda(bits_a: int, bits_x: int, a_codes, a_scales,
                          x_codes, x_scales) -> torch.Tensor:
     """Kernel form of :func:`mvm_batched_f32_plain`: one launch for
@@ -94,9 +96,4 @@ def mvm_batched_f32_cuda(bits_a: int, bits_x: int, a_codes, a_scales,
     _build.launch("clover_mvm_batched_f32", device, P(a_codes), P(a_scales),
                   P(x_codes), P(x_scales), P(out), m_pad, n_pad, b, bits_a,
                   bits_x)
-    mvm_batched_f32_cuda.launches += 1
     return out
-
-
-mvm_batched_cuda.launches = 0
-mvm_batched_f32_cuda.launches = 0

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import _build, mvm
 from .dispatch import on_cuda
 
@@ -71,16 +72,17 @@ def _check(codes: torch.Tensor) -> tuple[int, int]:
     return rows, wa
 
 
+@tracing.kernel("dma_probe")
 def dma_probe_cuda(codes: torch.Tensor) -> torch.Tensor:
     """f32[rows / 64] band sums of int8 codes[rows, wa] on the card."""
     rows, wa = _check(codes)
     out = torch.empty(rows // 64, dtype=torch.float32, device=codes.device)
     _build.launch("clover_dma_probe", codes.device, _build.ptr(codes),
                   _build.ptr(out), rows, wa)
-    dma_probe_cuda.launches += 1
     return out
 
 
+@tracing.kernel("dma_probe_cluster")
 def dma_probe_cluster_cuda(codes: torch.Tensor) -> torch.Tensor:
     """f32[rows / 64] band sums of int8 codes[rows, wa] on the card, in the
     fused MVM's launch geometry: its rows per warp R over these rows
@@ -91,10 +93,10 @@ def dma_probe_cluster_cuda(codes: torch.Tensor) -> torch.Tensor:
     out = torch.empty(rows // 64, dtype=torch.float32, device=codes.device)
     _build.launch("clover_dma_probe_cluster", codes.device, _build.ptr(codes),
                   _build.ptr(out), rows, wa, r)
-    dma_probe_cluster_cuda.launches += 1
     return out
 
 
+@tracing.kernel("salted_probe")
 def salted_probe_cuda(codes: torch.Tensor, salt: torch.Tensor
                       ) -> torch.Tensor:
     """salt[0] + the band sums of int8 codes[rows, wa] on the card."""
@@ -103,13 +105,7 @@ def salted_probe_cuda(codes: torch.Tensor, salt: torch.Tensor
     out = torch.empty(rows // 64, dtype=torch.float32, device=codes.device)
     _build.launch("clover_salted_probe", codes.device, _build.ptr(codes),
                   _build.ptr(salt), _build.ptr(out), rows, wa)
-    salted_probe_cuda.launches += 1
     return out
-
-
-dma_probe_cuda.launches = 0
-dma_probe_cluster_cuda.launches = 0
-salted_probe_cuda.launches = 0
 
 
 def dma_probe(codes: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,7 @@ import torch
 
 from ..formats import BLOCK, pack_nibbles
 from ..ops import _core
+from .. import tracing
 from . import _build, philox
 
 
@@ -47,6 +48,7 @@ def quantize_mat_plain(ap: torch.Tensor, bits: int, seed: int = 0,
     return (pack_nibbles(codes) if bits == 4 else codes), scales
 
 
+@tracing.kernel("quantize_vec")
 def quantize_vec_cuda(xp: torch.Tensor, bits: int, seed: int = 0,
                       noise: bool = False):
     """Kernel form of :func:`quantize_vec_plain` (leg 0)."""
@@ -61,7 +63,6 @@ def quantize_vec_cuda(xp: torch.Tensor, bits: int, seed: int = 0,
     _build.launch("clover_quantize_vec", xp.device, _build.ptr(xp),
                   _build.ptr(codes), _build.ptr(scales), n_pad, bits,
                   int(noise), seed & 0xFFFFFFFF)
-    quantize_vec_cuda.launches += 1
     return codes, scales
 
 
@@ -72,6 +73,7 @@ def counter_bits(m_pad: int, n_pad: int) -> int:
     return 32 if m_pad * n_pad < 1 << 32 else 64
 
 
+@tracing.kernel("quantize_mat")
 def quantize_mat_cuda(ap: torch.Tensor, bits: int, seed: int = 0,
                       noise: bool = False):
     """Kernel form of :func:`quantize_mat_plain`."""
@@ -88,9 +90,4 @@ def quantize_mat_cuda(ap: torch.Tensor, bits: int, seed: int = 0,
                   _build.ptr(codes), _build.ptr(scales), m_pad, n_pad, bits,
                   int(noise), int(counter_bits(m_pad, n_pad) == 64),
                   seed & 0xFFFFFFFF)
-    quantize_mat_cuda.launches += 1
     return codes, scales
-
-
-quantize_vec_cuda.launches = 0
-quantize_mat_cuda.launches = 0

@@ -16,6 +16,7 @@ import torch
 
 from ..formats import BLOCK, unpack_nibbles
 from ..ops import _core
+from .. import tracing
 from . import _build
 
 
@@ -25,6 +26,7 @@ def restore_vec_plain(codes: torch.Tensor, scales: torch.Tensor,
     return c.to(torch.float32) * _core.expand_vec_scales(scales, bits)
 
 
+@tracing.kernel("restore_vec")
 def restore_vec_cuda(codes: torch.Tensor, scales: torch.Tensor,
                      bits: int) -> torch.Tensor:
     if bits not in (4, 8):
@@ -39,7 +41,6 @@ def restore_vec_cuda(codes: torch.Tensor, scales: torch.Tensor,
     out = torch.empty(n_pad, dtype=torch.float32, device=codes.device)
     _build.launch("clover_restore_vec", codes.device, _build.ptr(codes),
                   _build.ptr(scales), _build.ptr(out), n_pad, bits)
-    restore_vec_cuda.launches += 1
     return out
 
 
@@ -49,6 +50,7 @@ def restore_mat_plain(codes: torch.Tensor, scales: torch.Tensor,
     return c.to(torch.float32) * _core.expand_tile_scales(scales, bits)
 
 
+@tracing.kernel("restore_mat")
 def restore_mat_cuda(codes: torch.Tensor, scales: torch.Tensor,
                      bits: int) -> torch.Tensor:
     if bits not in (4, 8):
@@ -65,9 +67,4 @@ def restore_mat_cuda(codes: torch.Tensor, scales: torch.Tensor,
     out = torch.empty(m_pad, n_pad, dtype=torch.float32, device=codes.device)
     _build.launch("clover_restore_mat", codes.device, _build.ptr(codes),
                   _build.ptr(scales), _build.ptr(out), m_pad, n_pad, bits)
-    restore_mat_cuda.launches += 1
     return out
-
-
-restore_vec_cuda.launches = 0
-restore_mat_cuda.launches = 0

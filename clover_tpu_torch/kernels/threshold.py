@@ -26,6 +26,7 @@ import torch
 
 from ..formats import BLOCK, pack_nibbles, unpack_nibbles
 from ..ops import _core
+from .. import tracing
 from . import _build
 
 
@@ -89,18 +90,16 @@ def _launch(codes: torch.Tensor, scales: torch.Tensor, k: int,
     return out
 
 
+@tracing.kernel("threshold4")
 def threshold4_cuda(codes: torch.Tensor, scales: torch.Tensor,
                     k: int) -> torch.Tensor:
-    out = _launch(codes, scales, k, 4)
-    threshold4_cuda.launches += 1
-    return out
+    return _launch(codes, scales, k, 4)
 
 
+@tracing.kernel("threshold8")
 def threshold8_cuda(codes: torch.Tensor, scales: torch.Tensor,
                     k: int) -> torch.Tensor:
-    out = _launch(codes, scales, k, 8)
-    threshold8_cuda.launches += 1
-    return out
+    return _launch(codes, scales, k, 8)
 
 
 def hist4_plain(codes: torch.Tensor) -> torch.Tensor:
@@ -130,16 +129,17 @@ def _packed4(codes: torch.Tensor) -> int:
     return n_pad
 
 
+@tracing.kernel("hist4")
 def hist4_cuda(codes: torch.Tensor) -> torch.Tensor:
     n_pad = _packed4(codes)
     hist = torch.empty(n_pad // BLOCK, 8, dtype=torch.int32,
                        device=codes.device)
     _build.launch("clover_hist4", codes.device, _build.ptr(codes),
                   _build.ptr(hist), n_pad)
-    hist4_cuda.launches += 1
     return hist
 
 
+@tracing.kernel("mask4")
 def mask4_cuda(codes: torch.Tensor, m7: torch.Tensor, tau: torch.Tensor,
                fill: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
     n_pad = _packed4(codes)
@@ -152,11 +152,4 @@ def mask4_cuda(codes: torch.Tensor, m7: torch.Tensor, tau: torch.Tensor,
     P = _build.ptr
     _build.launch("clover_mask4", dev, P(codes), P(m7), P(tau), P(fill),
                   P(offset), P(out), n_pad)
-    mask4_cuda.launches += 1
     return out
-
-
-threshold4_cuda.launches = 0
-threshold8_cuda.launches = 0
-hist4_cuda.launches = 0
-mask4_cuda.launches = 0

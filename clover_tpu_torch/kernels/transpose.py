@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..formats import pack_nibbles, unpack_nibbles
+from .. import tracing
 from . import _build
 
 
@@ -35,17 +36,11 @@ def _launch(codes: torch.Tensor, bits: int) -> torch.Tensor:
     return out
 
 
+@tracing.kernel("transpose4")
 def transpose4_cuda(codes: torch.Tensor) -> torch.Tensor:
-    out = _launch(codes, 4)
-    transpose4_cuda.launches += 1
-    return out
+    return _launch(codes, 4)
 
 
+@tracing.kernel("transpose8")
 def transpose8_cuda(codes: torch.Tensor) -> torch.Tensor:
-    out = _launch(codes, 8)
-    transpose8_cuda.launches += 1
-    return out
-
-
-transpose4_cuda.launches = 0
-transpose8_cuda.launches = 0
+    return _launch(codes, 8)

@@ -18,7 +18,9 @@ derived by int32 arithmetic, and the threshold's cut-off stays on the
 device.  The optional error trace restores x once per iteration (one
 restore launch) and keeps each relative error on the device as a 0-d
 tensor, so a traced solve does not wait either; x starts at y's
-precision, 8-bit for the mixed 4x8 configuration.
+precision, 8-bit for the mixed 4x8 configuration.  Under a profiler the
+solve is the span ``clover.solve`` and each unchained iteration the span
+``clover.iteration`` (tracing.py).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from ..kernels.dispatch import SEED_GOLD, SEED_OP, on_cuda, seed_from, wrap_i32
 from ..ops.mvm import mvm_axpy
 from ..ops.quantize import restore_vec
 from ..ops.threshold import threshold
+from ..tracing import span
 
 
 class SolveResult(NamedTuple):
@@ -86,30 +89,34 @@ def _device(q) -> torch.device:
 
 def _solve(Phi, PhiT, y, x0, x_star, iterations: int, k, mu: float,
            generator) -> SolveResult:
-    seed0 = seed_from(generator)[0] if generator is not None else None
-    xs = x_star.values if x_star is not None else None
-    xs_norm = torch.linalg.norm(xs) if xs is not None else None
-    x, errs, start = x0, [], 0
+    with span("clover.solve"):
+        seed0 = seed_from(generator)[0] if generator is not None else None
+        xs = x_star.values if x_star is not None else None
+        xs_norm = torch.linalg.norm(xs) if xs is not None else None
+        x, errs, start = x0, [], 0
 
-    def seed_of(it):
-        return wrap_i32(seed0 + it * SEED_GOLD) if seed0 is not None else None
+        def seed_of(it):
+            return (wrap_i32(seed0 + it * SEED_GOLD) if seed0 is not None
+                    else None)
 
-    if (xs is None and iterations >= ITER_CHAIN
-            and fused.iteration_chain_eligible(Phi, PhiT, y, x0, k)):
-        start = iterations // ITER_CHAIN * ITER_CHAIN
-        for c in range(0, start, ITER_CHAIN):
-            seeds = [s for it in range(c, c + ITER_CHAIN)
-                     for s in _op_seeds(seed_of(it))]
-            x = _fused(fused.iteration_chain_cuda,
-                       fused.iteration_chain_plain, Phi, PhiT, y, x,
-                       float(mu), k, seeds=seeds)
-    for it in range(start, iterations):
-        x = _iteration(Phi, PhiT, y, x, float(mu), k, seed_of(it))
-        if xs is not None:
-            errs.append(torch.linalg.norm(restore_vec(x).values - xs) / xs_norm)
-    trace = (torch.stack(errs) if errs
-             else torch.zeros(iterations, device=_device(x0)))
-    return SolveResult(x=x, trace=trace)
+        if (xs is None and iterations >= ITER_CHAIN
+                and fused.iteration_chain_eligible(Phi, PhiT, y, x0, k)):
+            start = iterations // ITER_CHAIN * ITER_CHAIN
+            for c in range(0, start, ITER_CHAIN):
+                seeds = [s for it in range(c, c + ITER_CHAIN)
+                         for s in _op_seeds(seed_of(it))]
+                x = _fused(fused.iteration_chain_cuda,
+                           fused.iteration_chain_plain, Phi, PhiT, y, x,
+                           float(mu), k, seeds=seeds)
+        for it in range(start, iterations):
+            with span("clover.iteration"):
+                x = _iteration(Phi, PhiT, y, x, float(mu), k, seed_of(it))
+            if xs is not None:
+                errs.append(torch.linalg.norm(restore_vec(x).values - xs)
+                            / xs_norm)
+        trace = (torch.stack(errs) if errs
+                 else torch.zeros(iterations, device=_device(x0)))
+        return SolveResult(x=x, trace=trace)
 
 
 def iht(Phi, PhiT, y, iterations: int, k: int, mu: float,

@@ -32,6 +32,14 @@ failed, every rank drops the batch and the coordinator fails its futures.
 While no request comes, the coordinator broadcasts an idle header every
 ``HEARTBEAT_S``, so a follower never waits for a header as long as the
 process group's timeout.
+
+The dispatcher counts what it serves (tracing.counters()):
+``server.requests``, ``server.batches``, ``server.padded_rows`` (the
+bucket's rows beyond the requests) and ``server.queue_wait_ns`` (from each
+request's submit to the dispatcher taking it off the queue).  Under a
+profiler it records the span ``clover.server.gather``, from taking a
+batch's first request until the batch closes, and ``clover.server.batch``
+around its run, the futures' results included.
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from .parallel.mesh import (
 )
 from .parallel.multihost import local_device
 from .parallel.ops import _psum, _requant_batched, axis_key
+from .tracing import add, span
 
 _BUCKETS = (1, 2, 4, 8, 16, 32)
 HEARTBEAT_S = 10.0       # a sharded server's longest silence to its followers
@@ -102,7 +111,7 @@ class MVMServer:
         if self._stop.is_set():
             raise RuntimeError("MVMServer is closed")
         fut: Future = Future()
-        self._q.put((qx, fut))
+        self._q.put((qx, fut, time.perf_counter_ns()))
         return fut
 
     def mvm(self, qx, timeout: float | None = None):
@@ -120,7 +129,7 @@ class MVMServer:
         # fail anything still queued so no caller blocks forever
         while True:
             try:
-                _, fut = self._q.get_nowait()
+                _, fut, _ = self._q.get_nowait()
             except queue.Empty:
                 break
             if not fut.done():
@@ -129,23 +138,27 @@ class MVMServer:
     # -- dispatcher --------------------------------------------------------
 
     def _drain(self):
-        """Collect up to max_batch requests; ``max_wait_s`` is a single
-        deadline for the whole straggler wait, not per get."""
+        """Collect up to max_batch requests as (vector, future) pairs;
+        ``max_wait_s`` is a single deadline for the whole straggler wait,
+        not per get."""
         try:
-            first = self._q.get(timeout=0.05)
+            taken = [(self._q.get(timeout=0.05), time.perf_counter_ns())]
         except queue.Empty:
             return []
-        batch = [first]
-        deadline = time.monotonic() + self._max_wait
-        while len(batch) < self._max_batch:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                break
-            try:
-                batch.append(self._q.get(timeout=remaining))
-            except queue.Empty:
-                break
-        return batch
+        with span("clover.server.gather"):
+            deadline = time.monotonic() + self._max_wait
+            while len(taken) < self._max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    item = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                taken.append((item, time.perf_counter_ns()))
+        add("server.queue_wait_ns",
+            sum(at - stamp for (_, _, stamp), at in taken))
+        return [(qx, fut) for (qx, fut, _), _ in taken]
 
     def _loop(self):
         while not self._stop.is_set():
@@ -156,7 +169,8 @@ class MVMServer:
                     self._broadcast_header(_header(_IDLE))
                 continue
             try:
-                self._run(batch)
+                with span("clover.server.batch"):
+                    self._run(batch)
             except Exception as e:         # resolve futures with the error
                 for _, fut in batch:
                     if not fut.done():
@@ -171,6 +185,9 @@ class MVMServer:
                 return
         n = len(batch)
         size = next(b for b in _BUCKETS if b >= n)
+        add("server.requests", n)
+        add("server.batches")
+        add("server.padded_rows", size - n)
         vecs = [qx for qx, _ in batch]
         vecs += [vecs[0]] * (size - n)              # pad to the bucket
         xs = stack_vectors(vecs)

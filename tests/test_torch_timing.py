@@ -10,6 +10,7 @@ import torch
 
 from clover_tpu.harness import profile as jax_profile
 from clover_tpu.harness import timing as jax_timing
+from clover_tpu_torch import tracing
 from clover_tpu_torch.harness import profile, timing
 from clover_tpu_torch.harness.sysinfo import hbm_spec
 
@@ -87,7 +88,7 @@ def test_roofline_report_has_the_reference_header():
 
 def test_trace_and_annotate_on_the_cpu(tmp_path):
     with profile.trace(str(tmp_path)) as prof:
-        with profile.annotate("probe region"):
+        with tracing.span("probe region"):
             torch.rand(256, 256).sum()
     assert any(e.key == "probe region" for e in prof.key_averages())
     assert list(tmp_path.glob("trace-*.json"))
