@@ -9,6 +9,13 @@ batches padded with the first request's vector and the padding results
 dropped, as in clover_tpu.  The dispatcher computes on the matrix's
 device (each kernel launch enters that device's context).
 
+After taking a batch's first request the dispatcher waits at most
+``max_wait_s`` for stragglers, while the traffic shows concurrent
+requests.  Once a wait has run to its deadline and collected nothing, the
+traffic is lone: a batch whose first request has nothing queued behind it
+then closes at once.  A request already queued behind the first brings
+the wait back, and a batch of more than one request ends the lone state.
+
 With ``mesh`` the matrix is sharded over a ("row", "col") mesh of ranks
 (parallel.shard_matrix) and the server is SPMD, since every rank must join
 each batch's collectives.  On the coordinator (rank 0) the dispatcher
@@ -35,11 +42,13 @@ process group's timeout.
 
 The dispatcher counts what it serves (tracing.counters()):
 ``server.requests``, ``server.batches``, ``server.padded_rows`` (the
-bucket's rows beyond the requests) and ``server.queue_wait_ns`` (from each
-request's submit to the dispatcher taking it off the queue).  Under a
-profiler it records the span ``clover.server.gather``, from taking a
-batch's first request until the batch closes, and ``clover.server.batch``
-around its run, the futures' results included.
+bucket's rows beyond the requests), ``server.queue_wait_ns`` (from each
+request's submit to the dispatcher taking it off the queue) and
+``server.waits_skipped`` (batches closed with no straggler wait, as lone
+traffic's are).  Under a profiler it records the span
+``clover.server.gather``, from taking a batch's first request until the
+batch closes (with or without a wait), and ``clover.server.batch`` around
+its run, the futures' results included.
 """
 
 from __future__ import annotations
@@ -72,7 +81,10 @@ HEARTBEAT_S = 10.0       # a sharded server's longest silence to its followers
 class MVMServer:
     def __init__(self, qA, max_batch: int = 8, max_wait_s: float = 0.002,
                  generator=None, mesh=None):
-        """``generator``: a ``torch.Generator`` for stochastic rounding of
+        """``max_wait_s``: the longest straggler wait after a batch's
+        first request, taken while the traffic shows concurrent requests
+        (none while it is lone; see the module docstring).
+        ``generator``: a ``torch.Generator`` for stochastic rounding of
         the outputs (one seed drawn per batch, on the coordinator), or None
         for deterministic outputs.  ``mesh``: the mesh ``qA`` is sharded
         over (``qA`` is then this rank's parallel.ShardedMatrix); see the
@@ -85,6 +97,7 @@ class MVMServer:
         self._qA = qA
         self._max_batch = max_batch
         self._max_wait = max_wait_s
+        self._lone = False
         self._generator = generator
         self._mesh = mesh
         self._q: queue.Queue = queue.Queue()
@@ -138,24 +151,34 @@ class MVMServer:
     # -- dispatcher --------------------------------------------------------
 
     def _drain(self):
-        """Collect up to max_batch requests as (vector, future) pairs;
-        ``max_wait_s`` is a single deadline for the whole straggler wait,
-        not per get."""
+        """Collect up to max_batch requests as (vector, future) pairs.
+
+        While the traffic is lone and nothing stands behind the first
+        request, the batch closes at once.  Otherwise stragglers are
+        collected until ``max_wait_s`` after the first request (a single
+        deadline for the whole wait, not per get) or ``max_batch``; a wait
+        that runs out with the first request alone makes the traffic lone,
+        a batch of more than one makes it not."""
         try:
             taken = [(self._q.get(timeout=0.05), time.perf_counter_ns())]
         except queue.Empty:
             return []
         with span("clover.server.gather"):
-            deadline = time.monotonic() + self._max_wait
-            while len(taken) < self._max_batch:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                try:
-                    item = self._q.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                taken.append((item, time.perf_counter_ns()))
+            if self._lone and self._q.empty():
+                add("server.waits_skipped")
+            else:
+                deadline = time.monotonic() + self._max_wait
+                while len(taken) < self._max_batch:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        item = self._q.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    taken.append((item, time.perf_counter_ns()))
+                # one request and room for more: the wait ran out
+                self._lone = len(taken) == 1 and self._max_batch > 1
         add("server.queue_wait_ns",
             sum(at - stamp for (_, _, stamp), at in taken))
         return [(qx, fut) for (qx, fut, _), _ in taken]

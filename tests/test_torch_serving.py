@@ -8,6 +8,7 @@ sums in another order).  Every wait is bounded, so no test can hang.
 
 import sys
 import threading
+import time
 
 import numpy as np
 import jax.numpy as jnp
@@ -18,6 +19,7 @@ import clover_tpu as ct
 import clover_tpu_torch as tt
 import clover_tpu_torch.serving as serving
 from clover_tpu.serving import MVMServer as JaxServer
+from clover_tpu_torch import tracing
 from clover_tpu_torch.kernels import seed_from
 from clover_tpu_torch.serving import MVMServer
 from torch_helpers import assert_same, assert_within_lsb, to_torch
@@ -75,6 +77,67 @@ def test_server_pads_short_batches_to_the_bucket(monkeypatch):
         server.close()
     assert [xs.codes.shape[0] for xs in seen] == [4]
     assert torch.equal(seen[0].codes[3], vecs[0].codes)
+    for x, y in zip(vecs, results):
+        assert_same(y, tt.mvm(A, x))
+
+
+def test_lone_client_skips_the_straggler_wait():
+    """A lone client's first request waits out ``max_wait_s``; once that
+    wait has collected nothing, each later request with nothing queued
+    behind it is served at once."""
+    A = tt.quantize(torch.rand(128, 256) * 2 - 1, 4)
+    vecs = [tt.quantize(torch.linspace(-1, j + 1, 256), 4) for j in range(5)]
+    server = MVMServer(A, max_batch=8, max_wait_s=1.0)
+    before = tracing.counters().get("server.waits_skipped", 0)
+    try:
+        results, seconds = [], []
+        for v in vecs:
+            t0 = time.perf_counter()
+            results.append(server.mvm(v, timeout=WAIT))
+            seconds.append(time.perf_counter() - t0)
+    finally:
+        server.close()
+    assert tracing.counters()["server.waits_skipped"] - before == 4
+    assert max(seconds[1:]) < 0.5, seconds
+    for x, y in zip(vecs, results):
+        assert_same(y, tt.mvm(A, x))
+
+
+def test_queued_requests_bring_the_wait_back(monkeypatch):
+    """Lone traffic, then three requests queued while a lone batch runs:
+    the next batch waits for stragglers and holds all three, padded to
+    the bucket of 4, and the traffic is no longer lone."""
+    seen, entered, release = [], threading.Event(), threading.Event()
+    real = serving.mvm_batched
+
+    def record(A, xs, seed):
+        seen.append(xs)
+        if len(seen) == 2:               # the lone batch that skipped
+            entered.set()
+            assert release.wait(WAIT)
+        return real(A, xs, seed)
+
+    monkeypatch.setattr(serving, "mvm_batched", record)
+    A = tt.quantize(torch.rand(128, 256) * 2 - 1, 4)
+    first = tt.quantize(torch.rand(256) * 2 - 1, 4)
+    vecs = [tt.quantize(torch.linspace(-1, j + 1, 256), 4) for j in range(3)]
+    server = MVMServer(A, max_batch=8, max_wait_s=0.25)
+    before = tracing.counters().get("server.waits_skipped", 0)
+    try:
+        server.mvm(first, timeout=WAIT)          # its wait makes it lone
+        lone = server.submit(first)
+        assert entered.wait(WAIT)
+        futures = [server.submit(v) for v in vecs]
+        release.set()
+        lone.result(timeout=WAIT)
+        results = [f.result(timeout=WAIT) for f in futures]
+        assert not server._lone
+    finally:
+        release.set()
+        server.close()
+    assert tracing.counters()["server.waits_skipped"] - before == 1
+    assert [xs.codes.shape[0] for xs in seen] == [1, 1, 4]
+    assert torch.equal(seen[2].codes[3], vecs[0].codes)
     for x, y in zip(vecs, results):
         assert_same(y, tt.mvm(A, x))
 

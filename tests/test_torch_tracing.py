@@ -200,6 +200,33 @@ def test_server_spans_come_from_the_dispatcher_thread():
         assert gather_end <= run_start
 
 
+def test_a_batch_closed_with_no_wait_records_its_gather():
+    """A lone client: every batch after the first closes with no
+    straggler wait, and each still records one ``clover.server.gather``
+    span before its ``clover.server.batch``."""
+    A = tt.quantize(torch.rand(128, 256) * 2 - 1, 4)
+    vecs = [tt.quantize(torch.linspace(-1, j + 1, 256), 4) for j in range(4)]
+    before = tracing.counters()
+    server = MVMServer(A, max_batch=4, max_wait_s=0.01)
+    try:
+        with _profile(all_threads=True) as prof:
+            for v in vecs:
+                server.mvm(v, timeout=WAIT)
+    finally:
+        server.close()
+    after = tracing.counters()
+    batches = after["server.batches"] - before.get("server.batches", 0)
+    skipped = (after["server.waits_skipped"]
+               - before.get("server.waits_skipped", 0))
+    spans = _spans(prof, "clover.server.")
+    gathers = [s for s in spans if s[0] == "clover.server.gather"]
+    runs = [s for s in spans if s[0] == "clover.server.batch"]
+    assert batches == 4 and skipped == 3
+    assert len(gathers) == len(runs) == batches
+    for (_, _, gather_end, _), (_, run_start, _, _) in zip(gathers, runs):
+        assert gather_end <= run_start
+
+
 def test_counters_take_no_lost_update_under_contention():
     """Eight threads, a short switch interval: the decorated call's count
     and a counter both come out exact."""
