@@ -19,8 +19,10 @@ device.  The optional error trace restores x once per iteration (one
 restore launch) and keeps each relative error on the device as a 0-d
 tensor, so a traced solve does not wait either; x starts at y's
 precision, 8-bit for the mixed 4x8 configuration.  Under a profiler the
-solve is the span ``clover.solve`` and each unchained iteration the span
-``clover.iteration`` (tracing.py).
+solve is the span ``clover.solve``, each chained launch the span
+``clover.chain`` and each unchained iteration the span
+``clover.iteration`` (tracing.py).  A solve that chains adds the
+iterations it chained to the counter ``solver.chained_iterations``.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from ..kernels.dispatch import SEED_GOLD, SEED_OP, on_cuda, seed_from, wrap_i32
 from ..ops.mvm import mvm_axpy
 from ..ops.quantize import restore_vec
 from ..ops.threshold import threshold
-from ..tracing import span
+from ..tracing import add, span
 
 
 class SolveResult(NamedTuple):
@@ -103,11 +105,13 @@ def _solve(Phi, PhiT, y, x0, x_star, iterations: int, k, mu: float,
                 and fused.iteration_chain_eligible(Phi, PhiT, y, x0, k)):
             start = iterations // ITER_CHAIN * ITER_CHAIN
             for c in range(0, start, ITER_CHAIN):
-                seeds = [s for it in range(c, c + ITER_CHAIN)
-                         for s in _op_seeds(seed_of(it))]
-                x = _fused(fused.iteration_chain_cuda,
-                           fused.iteration_chain_plain, Phi, PhiT, y, x,
-                           float(mu), k, seeds=seeds)
+                with span("clover.chain"):
+                    seeds = [s for it in range(c, c + ITER_CHAIN)
+                             for s in _op_seeds(seed_of(it))]
+                    x = _fused(fused.iteration_chain_cuda,
+                               fused.iteration_chain_plain, Phi, PhiT, y, x,
+                               float(mu), k, seeds=seeds)
+            add("solver.chained_iterations", start)
         for it in range(start, iterations):
             with span("clover.iteration"):
                 x = _iteration(Phi, PhiT, y, x, float(mu), k, seed_of(it))

@@ -1,7 +1,8 @@
 """The program's spans and counters.
 
-Spans mark where the host spends its time: ``clover.solve`` and
-``clover.iteration`` (models/solvers.py), ``clover.kernel.<name>`` around
+Spans mark where the host spends its time: ``clover.solve``,
+``clover.chain`` (each chained launch) and ``clover.iteration`` (each
+unchained iteration; models/solvers.py), ``clover.kernel.<name>`` around
 each kernel wrapper's checks, allocations and launch (:func:`kernel`), and
 ``clover.server.gather`` and ``clover.server.batch`` on the MVM server's
 dispatcher (serving.py).  A span is recorded only while a
@@ -13,7 +14,9 @@ with ``experimental_config=torch._C._profiler._ExperimentalConfig(
 profile_all_threads=True)``.
 
 Counters are always on: process-wide integers, each written at most once
-per request, batch or kernel call, read with :func:`counters`.  The
+per request, batch, solve or kernel call, read with :func:`counters`:
+``server.*`` (serving.py) and ``solver.chained_iterations``
+(models/solvers.py).  The
 kernels' launch counts stay on their wrappers (``<wrapper>.launches``,
 ``kernels.launch_counts()``).
 """

@@ -1,5 +1,6 @@
-"""clover_tpu_torch.tracing: spans only under a profiler, the kernel
-decorator's counts, and the MVM server's counters and dispatcher spans.
+"""clover_tpu_torch.tracing: spans only under a profiler, the solver's
+spans and its chained-iteration counter, the kernel decorator's counts,
+and the MVM server's counters and dispatcher spans.
 
 Everything runs on the CPU with the plain versions; no assertion is made
 on a time.  Every wait is bounded, so no test can hang.
@@ -114,6 +115,40 @@ def test_solve_spans_nest_under_a_cpu_profiler(solver):
         assert start <= a <= b <= end and t == thread
     # the plain versions are no kernel calls
     assert not any(s[0].startswith("clover.kernel.") for s in spans)
+
+
+@pytest.mark.parametrize("iterations,chains,unchained", [(100, 25, 0),
+                                                         (6, 1, 2)])
+def test_chained_solve_spans(iterations, chains, unchained):
+    """An untraced solve of a whole-iteration-eligible problem: one
+    ``clover.chain`` span per chained launch of ``ITER_CHAIN`` iterations,
+    one ``clover.iteration`` span per iteration of the tail, all inside
+    the ``clover.solve`` span on its thread."""
+    Phi, PhiT, y = _problem(2, 512, 512, 64)
+    with _profile() as prof:
+        tt.iht(Phi, PhiT, y, iterations, 64, 1e-3)
+    spans = _spans(prof)
+    (_, start, end, thread), = [s for s in spans if s[0] == "clover.solve"]
+    inner = [s for s in spans if s[0] in ("clover.chain", "clover.iteration")]
+    assert [s[0] for s in inner] == (["clover.chain"] * chains
+                                     + ["clover.iteration"] * unchained)
+    for _, a, b, t in inner:
+        assert start <= a <= b <= end and t == thread
+
+
+@pytest.mark.parametrize("iterations,traced,chained", [
+    (100, False, 100), (6, False, 4), (100, True, 0), (2, False, 0)])
+def test_chained_iterations_counter(iterations, traced, chained):
+    """``solver.chained_iterations`` rises by the iterations a solve
+    chained; a solve with an error trace (``x_star``) or of fewer than
+    ``ITER_CHAIN`` iterations chains none."""
+    Phi, PhiT, y = _problem(3, 512, 512, 64)
+    xs = (tt.QVec32(values=torch.ones(512), length=512) if traced
+          else None)
+    before = tracing.counters().get("solver.chained_iterations", 0)
+    tt.iht(Phi, PhiT, y, iterations, 64, 1e-3, x_star=xs)
+    after = tracing.counters().get("solver.chained_iterations", 0)
+    assert after - before == chained
 
 
 def test_kernel_decorator_counts_returned_calls_and_opens_its_span():
