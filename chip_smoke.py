@@ -41,7 +41,7 @@ memory rate and the MVM against its probe floor (the dma and salted probe
 kernels); the grid search, ``python -m clover_tpu_torch -g --quick``; a
 checkpoint round trip; and the sharded path (clover_tpu_torch.parallel):
 8 ranks sharing the card on a 2x4 mesh over gloo (the sharded IHT and GD,
-the sharded MVMServer, ``-p --sharded``'s rows), then ``-p --sharded``
+the ShardedMVMServer, ``-p --sharded``'s rows), then ``-p --sharded``
 on a 1x1 mesh in this process.
 
 Phases, each of which raises on failure:
@@ -166,7 +166,7 @@ Phases, each of which raises on failure:
     mu and iterations, traced, each trace within the regime rule of
     tests/test_parallel.py against the single solve and every rank's
     solution the same bytes; the 4-bit IHT's iterations/s and a per-leg
-    split; a sharded MVMServer on 16384x16384 (4x4, 4x8, 8x8; bursts from
+    split; a ShardedMVMServer on 16384x16384 (4x4, 4x8, 8x8; bursts from
     4 client threads on rank 0; every result within 1 LSB of tt.mvm,
     scales within rtol 1e-6; requests/s, p50/p99); ``-p --sharded``'s
     rows on the 2x4 mesh.  The ranks send back their launch counts.
@@ -2567,11 +2567,10 @@ def sharded_rank_work(rank: int, port: int) -> dict:
     from clover_tpu_torch.harness import perf
     from clover_tpu_torch.ops import _core
     from clover_tpu_torch.ops.axpy import scale_and_add
-    from clover_tpu_torch.ops.mvm import _requant_output, mvm_f32_fast
+    from clover_tpu_torch.ops.mvm import mvm_f32_fast, requant_output
     from clover_tpu_torch.parallel import ops as pops
     from clover_tpu_torch.parallel import solvers
     from clover_tpu_torch.parallel.mesh import vec_block
-    from clover_tpu_torch.serving import MVMServer
     par.initialize(f"127.0.0.1:{port}", RANKS, rank)
     mesh = par.make_mesh()
     ROW, COL = par.ROW, par.COL
@@ -2648,7 +2647,7 @@ def sharded_rank_work(rank: int, port: int) -> dict:
         nl = phi_l.cols_pad
         x_l = vec_block(res.x, c * nl, (c + 1) * nl)
         y32 = mvm_f32_fast(phi_l, x_l)
-        t1 = _requant_output(y32.clone(), phi_l.rows, 4, None)
+        t1 = requant_output(y32.clone(), phi_l.rows, 4, None)
         out["timed"] = {
             "iterations/s": SHARDED_TIMED_ITERS * 1e3 / host,
             "host ms": host / SHARDED_TIMED_ITERS,
@@ -2657,7 +2656,7 @@ def sharded_rank_work(rank: int, port: int) -> dict:
                                        20),
             "all_reduce ms": 1e3 * wall_time(lambda: dist.all_reduce(
                 y32.clone(), group=mesh.get_group(COL))),
-            "requant ms": median_ms(lambda: _requant_output(
+            "requant ms": median_ms(lambda: requant_output(
                 y32, phi_l.rows, 4, None), 5, 20),
             "axpy ms": median_ms(lambda: scale_and_add(y_l, t1, -1.0), 5,
                                  20),
@@ -2677,10 +2676,11 @@ def sharded_rank_work(rank: int, port: int) -> dict:
     for bits_a, modes in ((4, ("4x4", "4x8")), (8, ("8x8",))):
         shard = par.shard_matrix(mats[bits_a], mesh)
         if rank != 0:          # the follower loop, until rank 0 closes
-            counted(lambda: MVMServer(shard, max_batch=32, max_wait_s=0.002,
-                                      mesh=mesh))
+            counted(lambda: par.ShardedMVMServer(shard, mesh, max_batch=32,
+                                                 max_wait_s=0.002))
             continue
-        server = MVMServer(shard, max_batch=32, max_wait_s=0.002, mesh=mesh)
+        server = par.ShardedMVMServer(shard, mesh, max_batch=32,
+                                      max_wait_s=0.002)
         try:
             for mode in modes:
                 bits_x = int(mode.split("x")[1])
@@ -2843,7 +2843,7 @@ def phase_sharded():
         if sv["lsb"] > 1 or sv["rtol"] > MVM_SCALE_RTOL:
             raise AssertionError(f"sharded server {mode}: {sv['lsb']} LSB, "
                                  f"scale rtol {sv['rtol']} from tt.mvm")
-        print(f"  sharded MVMServer {mode} {NS}x{NS}: {sv['requests']} "
+        print(f"  ShardedMVMServer {mode} {NS}x{NS}: {sv['requests']} "
               f"requests in {sv['wall s'] * 1e3:.2f} ms, "
               f"{sv['requests'] / sv['wall s']:.1f} requests/s, p50 "
               f"{sv['p50 ms']:.3f} ms p99 {sv['p99 ms']:.3f} ms; within "

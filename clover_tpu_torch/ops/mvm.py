@@ -83,7 +83,7 @@ def mvm(A, x, generator=None):
         codes, scales = fn(A.codes, A.scales, x.codes, x.scales,
                            seed1=seed, noise1=noise)
         return out(codes=codes, scales=scales, length=A.rows)
-    return _requant_output(mvm_f32(A, x), A.rows, _out_bits(A, x), generator)
+    return requant_output(mvm_f32(A, x), A.rows, out_bits(A, x), generator)
 
 
 def mvm_axpy(A, x, u, alpha, generator_mvm=None, generator_axpy=None):
@@ -103,7 +103,9 @@ def mvm_axpy(A, x, u, alpha, generator_mvm=None, generator_axpy=None):
     return scale_and_add(u, mvm(A, x, generator_mvm), alpha, generator_axpy)
 
 
-def _out_bits(A, x) -> int:
+def out_bits(A, x) -> int:
+    """The output precision of the MVM ``A @ x`` (the table in
+    :func:`mvm`); raises ``TypeError`` for a combination it refuses."""
     if isinstance(x, QVec32):
         return 32
     if isinstance(A, QMat4) and isinstance(x, QVec4):
@@ -118,7 +120,9 @@ def _out_bits(A, x) -> int:
                     f"{type(x).__name__}")
 
 
-def _requant_output(y32: torch.Tensor, rows: int, out_bits: int, generator):
+def requant_output(y32: torch.Tensor, rows: int, out_bits: int, generator):
+    """The MVM's output container of ``out_bits`` from the padded f32 sums
+    ``y32``: the band requant for 4 and 8 bits."""
     if out_bits == 32:
         return QVec32(values=y32, length=rows)
     if out_bits == 16:

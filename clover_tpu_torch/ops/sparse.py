@@ -18,7 +18,7 @@ import torch
 from ..formats import BLOCK, QMat4, QMat8, QVec4, QVec8, QVec16, QVec32
 from ..formats import unpack_nibbles
 from . import _core
-from .mvm import _requant_output
+from .mvm import requant_output
 from .quantize import restore_vec
 
 
@@ -49,7 +49,7 @@ def mvm_sparse(AT, x, k: int, generator=None):
         rows = AT.values[idx].to(torch.float32)
     with _core.ieee_fp32():
         y32 = vals @ rows
-    return _requant_output(y32, AT.cols, _out_bits_sparse(AT, x), generator)
+    return requant_output(y32, AT.cols, _out_bits_sparse(AT, x), generator)
 
 
 def _out_bits_sparse(AT, x) -> int:

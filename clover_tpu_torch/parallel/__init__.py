@@ -1,6 +1,7 @@
 """Mesh-sharded execution on ``torch.distributed`` (counterpart of
-clover_tpu/parallel): sharding rules, per-shard collective ops, and the
-distributed GD/IHT solvers, one process per shard (SPMD).
+clover_tpu/parallel): sharding rules, per-shard collective ops, the
+distributed GD/IHT solvers and the sharded MVM server, one process per
+shard (SPMD).
 
     from clover_tpu_torch import parallel
     parallel.initialize()                 # torchrun's env, or a world of one
@@ -17,6 +18,7 @@ from .mesh import (
 )
 from .multihost import initialize, is_coordinator, local_device, pod_mesh
 from .ops import dot_psum, mvm_psum, threshold_global
+from .serving import ShardedMVMServer
 from . import solvers
 
 __all__ = [
@@ -24,4 +26,5 @@ __all__ = [
     "mvm_psum", "dot_psum", "threshold_global", "solvers",
     "initialize", "pod_mesh", "is_coordinator",
     "ShardedMatrix", "ShardedVector", "gather_vector", "local_device",
+    "ShardedMVMServer",
 ]

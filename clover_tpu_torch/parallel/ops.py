@@ -28,7 +28,7 @@ from ..formats import (
 from ..kernels.dispatch import SEED_GOLD, wrap_i32
 from ..ops.dot import dot
 from ..ops.gemm import mvm_batched_f32_fast
-from ..ops.mvm import _requant_output, mvm_f32_fast
+from ..ops.mvm import mvm_f32_fast, requant_output
 from ..ops.quantize import quantize_vec, restore_vec
 from .mesh import axis_index, gather, mat_block, vec_block
 
@@ -45,7 +45,8 @@ def axis_key(key, axis: str, mesh):
     return wrap_i32(key + (axis_index(mesh, axis) + 1) * AXIS_MIX)
 
 
-def _psum(t: torch.Tensor, axis: str, mesh) -> torch.Tensor:
+def psum(t: torch.Tensor, axis: str, mesh) -> torch.Tensor:
+    """The sum of ``t`` over the ranks along ``axis``, in place."""
     dist.all_reduce(t, group=mesh.get_group(axis))
     return t
 
@@ -54,9 +55,9 @@ def mvm_psum(A_local, x_local, reduce_axis: str, key, out_bits: int,
              out_owner_axis: str, mesh):
     """Local f32 MVM partial -> psum over ``reduce_axis`` -> requantize
     (band absmax and SR, seed folded along ``out_owner_axis``)."""
-    y32 = _psum(mvm_f32_fast(A_local, x_local), reduce_axis, mesh)
-    return _requant_output(y32, A_local.rows, out_bits,
-                           axis_key(key, out_owner_axis, mesh))
+    y32 = psum(mvm_f32_fast(A_local, x_local), reduce_axis, mesh)
+    return requant_output(y32, A_local.rows, out_bits,
+                          axis_key(key, out_owner_axis, mesh))
 
 
 def mvm_batched_psum(A_local, xs_local, reduce_axis: str, key,
@@ -65,18 +66,18 @@ def mvm_batched_psum(A_local, xs_local, reduce_axis: str, key,
     f32-output mode, the psum of the (B, m_local) partials, then each
     vector's band requant, vector j with seed ``k0 + j`` (k0 the folded
     seed).  Returns a stacked container owned by ``out_owner_axis``."""
-    ys = _psum(mvm_batched_f32_fast(A_local, xs_local), reduce_axis, mesh)
-    return _requant_batched(ys, A_local.rows, out_bits,
-                            axis_key(key, out_owner_axis, mesh))
+    ys = psum(mvm_batched_f32_fast(A_local, xs_local), reduce_axis, mesh)
+    return requant_batched(ys, A_local.rows, out_bits,
+                           axis_key(key, out_owner_axis, mesh))
 
 
-def _requant_batched(ys: torch.Tensor, rows: int, out_bits: int, k0):
+def requant_batched(ys: torch.Tensor, rows: int, out_bits: int, k0):
     """The band requant of reduced (B, m_local) sums, vector j with seed
     ``k0 + j`` (None: deterministic): :func:`mvm_batched_psum` after its
     psum."""
     b = ys.shape[0]
     if out_bits in (16, 32):
-        return _requant_output(ys, rows, out_bits, None)
+        return requant_output(ys, rows, out_bits, None)
     if k0 is None:
         # 64-row bands do not straddle vectors: one flat requant
         q = quantize_vec(QVec32(values=ys.reshape(-1), length=b * rows),
@@ -129,8 +130,8 @@ def mvm_psum_overlapped(A_local, x_local, reduce_axis: str, key,
     for p, work in partials:
         work.wait()
         y32 = p if y32 is None else y32 + p
-    return _requant_output(y32, A_local.rows, out_bits,
-                           axis_key(key, out_owner_axis, mesh))
+    return requant_output(y32, A_local.rows, out_bits,
+                          axis_key(key, out_owner_axis, mesh))
 
 
 def threshold_global(x_local, k: int, axis: str, mesh):
@@ -168,11 +169,11 @@ def threshold_global(x_local, k: int, axis: str, mesh):
 def dot_psum(u_local, v_local, axis: str, mesh) -> torch.Tensor:
     """Distributed quantized dot: the local blocked dot, psum over
     ``axis``; a 0-dim f32 tensor."""
-    return _psum(dot(u_local, v_local).reshape(1), axis, mesh)[0]
+    return psum(dot(u_local, v_local).reshape(1), axis, mesh)[0]
 
 
 def norm2_psum(x32_local: torch.Tensor, axis: str, mesh) -> torch.Tensor:
     """||x||_2 of an f32 vector sharded along ``axis``; a 0-dim tensor."""
-    return torch.sqrt(_psum((x32_local * x32_local).sum().reshape(1), axis,
-                            mesh)[0])
+    return torch.sqrt(psum((x32_local * x32_local).sum().reshape(1), axis,
+                           mesh)[0])
 

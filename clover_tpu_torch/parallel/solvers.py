@@ -30,7 +30,7 @@ from ..formats import QVec32, pad_vector, zeros_vector
 from ..kernels.dispatch import SEED_GOLD, seed_from, wrap_i32
 from ..models.solvers import SolveResult, _op_seeds, _solve
 from ..ops.axpy import scale_and_add
-from ..ops.mvm import _out_bits, mvm_axpy
+from ..ops.mvm import mvm_axpy, out_bits
 from ..ops.quantize import restore_vec
 from .mesh import COL, ROW, axis_index, axis_size, gather_vector
 from .multihost import local_device
@@ -58,7 +58,7 @@ def _solve_sharded(qphi, qphit, qy, x_bits: int, x_star, iterations: int, k,
     nl = phit.rows                      # this rank's block of x
     c = axis_index(mesh, COL)
     x = zeros_vector(x_bits, nl, device=dev)
-    t_bits = _out_bits(phi, x)           # precision of t1/t2 (y's side)
+    t_bits = out_bits(phi, x)            # precision of t1/t2 (y's side)
     xs = xs_norm = None
     if x_star is not None:
         xs = pad_vector(x_star.values[c * nl:(c + 1) * nl])
@@ -97,7 +97,7 @@ def iht(qphi, qphit, qy, iterations: int, k: int, mu: float, mesh,
     mesh, transposed=True), shard_vector(qy, mesh, ROW)); ``x_star``, if
     given, the full padded f32 container.  Returns the full solution on
     every rank and the trace ||x - x*|| / ||x*||, replicated."""
-    return _solve_sharded(qphi, qphit, qy, _out_bits(qphit.local, qy.local),
+    return _solve_sharded(qphi, qphit, qy, out_bits(qphit.local, qy.local),
                           x_star, iterations, int(k), float(mu), generator,
                           mesh)
 
@@ -105,6 +105,6 @@ def iht(qphi, qphit, qy, iterations: int, k: int, mu: float, mesh,
 def gd(qphi, qphit, qy, iterations: int, mu: float, mesh, generator=None,
        x_star: QVec32 | None = None) -> SolveResult:
     """Mesh-sharded quantized gradient descent."""
-    return _solve_sharded(qphi, qphit, qy, _out_bits(qphit.local, qy.local),
+    return _solve_sharded(qphi, qphit, qy, out_bits(qphit.local, qy.local),
                           x_star, iterations, None, float(mu), generator,
                           mesh)

@@ -224,7 +224,7 @@ def test_mvm_psum_overlapped_checks_prepared_length(ranks):
 
 
 def test_sharded_server_round_trip(ranks):
-    """The sharded MVMServer: 3 vectors, within 1 LSB of the single-device
+    """The ShardedMVMServer: 3 vectors, within 1 LSB of the single-device
     MVM (clover_tpu's and the port's)."""
     a, vecs = W.server_problem(W.MESHES[0])
     jA = ct.quantize(jnp.asarray(a), 4)

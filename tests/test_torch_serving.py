@@ -20,7 +20,8 @@ import clover_tpu_torch as tt
 import clover_tpu_torch.serving as serving
 from clover_tpu.serving import MVMServer as JaxServer
 from clover_tpu_torch import tracing
-from clover_tpu_torch.kernels import seed_from
+from clover_tpu_torch.kernels import MAX_BATCH, seed_from, wrap_i32
+from clover_tpu_torch.parallel import ShardedMVMServer
 from clover_tpu_torch.serving import MVMServer
 from torch_helpers import assert_same, assert_within_lsb, to_torch
 
@@ -56,9 +57,9 @@ def test_server_matches_mvm_and_jax_server(rng, bits_a, bits_x):
         assert_within_lsb(got, want)
 
 
-def test_server_pads_short_batches_to_the_bucket(monkeypatch):
-    """Three requests in one batch run as a bucket of 4, padded with the
-    first request's vector; the padding result is dropped."""
+def _serve_one_batch(monkeypatch, vecs, generator=None):
+    """Serve ``vecs`` as one batch; -> (the stacked batches the MVM saw,
+    the results)."""
     seen = []
     real = serving.mvm_batched
 
@@ -68,17 +69,36 @@ def test_server_pads_short_batches_to_the_bucket(monkeypatch):
 
     monkeypatch.setattr(serving, "mvm_batched", record)
     A = tt.quantize(torch.rand(128, 256) * 2 - 1, 4)
-    vecs = [tt.quantize(torch.linspace(-1, j + 1, 256), 4) for j in range(3)]
-    server = MVMServer(A, max_batch=8, max_wait_s=1.0)
+    server = MVMServer(A, max_batch=8, max_wait_s=1.0, generator=generator)
     try:
         futures = [server.submit(v) for v in vecs]
         results = [f.result(timeout=WAIT) for f in futures]
     finally:
         server.close()
-    assert [xs.codes.shape[0] for xs in seen] == [4]
-    assert torch.equal(seen[0].codes[3], vecs[0].codes)
-    for x, y in zip(vecs, results):
+    return A, seen, results
+
+
+def test_server_pads_short_batches_to_the_bucket(monkeypatch):
+    """A batch of three requests runs as three vectors, not padded to a
+    bucket of 4."""
+    vecs = [tt.quantize(torch.linspace(-1, j + 1, 256), 4) for j in range(3)]
+    A, seen, results = _serve_one_batch(monkeypatch, vecs)
+    assert [xs.codes.shape[0] for xs in seen] == [3]
+    for j, (x, y) in enumerate(zip(vecs, results)):
+        assert torch.equal(seen[0].codes[j], x.codes)
         assert_same(y, tt.mvm(A, x))
+
+
+def test_a_batch_rounds_vector_j_with_seed_plus_j(monkeypatch):
+    """With a generator, a batch of three draws one seed and vector j's
+    answer is ``tt.mvm`` with that seed + j."""
+    vecs = [tt.quantize(torch.linspace(-1, j + 1, 256), 4) for j in range(3)]
+    A, seen, results = _serve_one_batch(
+        monkeypatch, vecs, torch.Generator().manual_seed(7))
+    assert [xs.codes.shape[0] for xs in seen] == [3]
+    seed = seed_from(torch.Generator().manual_seed(7))[0]
+    for j, (x, y) in enumerate(zip(vecs, results)):
+        assert_same(y, tt.mvm(A, x, wrap_i32(seed + j)))
 
 
 def test_lone_client_skips_the_straggler_wait():
@@ -105,8 +125,8 @@ def test_lone_client_skips_the_straggler_wait():
 
 def test_queued_requests_bring_the_wait_back(monkeypatch):
     """Lone traffic, then three requests queued while a lone batch runs:
-    the next batch waits for stragglers and holds all three, padded to
-    the bucket of 4, and the traffic is no longer lone."""
+    the next batch waits for stragglers and holds all three, and the
+    traffic is no longer lone."""
     seen, entered, release = [], threading.Event(), threading.Event()
     real = serving.mvm_batched
 
@@ -136,8 +156,7 @@ def test_queued_requests_bring_the_wait_back(monkeypatch):
         release.set()
         server.close()
     assert tracing.counters()["server.waits_skipped"] - before == 1
-    assert [xs.codes.shape[0] for xs in seen] == [1, 1, 4]
-    assert torch.equal(seen[2].codes[3], vecs[0].codes)
+    assert [xs.codes.shape[0] for xs in seen] == [1, 1, 3]
     for x, y in zip(vecs, results):
         assert_same(y, tt.mvm(A, x))
 
@@ -188,13 +207,17 @@ def test_server_error_propagates():
 
 
 def test_server_refuses_a_mesh_and_odd_batch_limits():
-    """A mesh needs this rank's shard of the matrix, not the whole one
-    (the sharded server itself is in tests/test_torch_parallel.py)."""
+    """MVMServer takes no mesh; ShardedMVMServer needs this rank's shard of
+    the matrix, not the whole one (the sharded server itself is in
+    tests/test_torch_parallel.py).  A batch holds 1 to MAX_BATCH requests."""
     A = tt.quantize(torch.ones(128, 128), 4)
-    with pytest.raises(TypeError, match="ShardedMatrix"):
+    with pytest.raises(TypeError, match="mesh"):
         MVMServer(A, mesh=object())
-    with pytest.raises(ValueError):
-        MVMServer(A, max_batch=6)
+    with pytest.raises(TypeError, match="ShardedMatrix"):
+        ShardedMVMServer(A, object())
+    for max_batch in (0, MAX_BATCH + 1):
+        with pytest.raises(ValueError, match="max_batch"):
+            MVMServer(A, max_batch=max_batch)
 
 
 def test_server_many_clients():

@@ -193,7 +193,7 @@ def test_launch_counts_and_reset_behave_as_before(monkeypatch):
 
 def test_server_counts_requests_batches_and_padding(monkeypatch):
     """Over whatever batches form, every request is counted once and every
-    stacked row is a request or a padding row."""
+    stacked row is a request: no batch is padded."""
     buckets = []
     real = serving.mvm_batched
 
@@ -211,7 +211,8 @@ def test_server_counts_requests_batches_and_padding(monkeypatch):
     assert len(results) == 11
     assert delta["server.requests"] == 11
     assert delta["server.batches"] == len(buckets)
-    assert sum(buckets) == 11 + delta["server.padded_rows"]
+    assert sum(buckets) == 11
+    assert "server.padded_rows" not in after
     assert delta["server.queue_wait_ns"] >= 0
 
 

@@ -230,7 +230,7 @@ def run_server(par, mesh, shape, res, rank):
     that must fail alone (a wrong padded length, a combination the MVM
     refuses), a batch whose local step fails on SERVER_FAILING_RANK, and
     the three requests of the round trip."""
-    from clover_tpu_torch import serving
+    from clover_tpu_torch.parallel import serving
     a, vecs = server_problem(shape)
     qA = tt.quantize(torch.from_numpy(a), 4)
     real = serving.mvm_batched_f32_fast
@@ -245,8 +245,8 @@ def run_server(par, mesh, shape, res, rank):
         serving.mvm_batched_f32_fast = fails_once
     serving.HEARTBEAT_S = SERVER_HEARTBEAT_S
     try:
-        server = serving.MVMServer(par.shard_matrix(qA, mesh), max_batch=4,
-                                   max_wait_s=0.02, mesh=mesh)
+        server = par.ShardedMVMServer(par.shard_matrix(qA, mesh), mesh,
+                                      max_batch=4, max_wait_s=0.02)
     finally:
         serving.mvm_batched_f32_fast = real
     if rank == 0:
