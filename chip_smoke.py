@@ -57,7 +57,8 @@ Phases, each of which raises on failure:
    (SETUP_EDGES: tile counts no multiple of the persistent grid's share or
    of the transpose's 4x4-tile strips) on edge_matrix data (an all-zero
    tile, a tile on +-absmax, subnormal tiles), det and SR, 4- and 8-bit,
-   and the quantize on forced 64-bit Philox counters; the MVM at
+   and the quantize on forced 64-bit Philox counters, and at the solve
+   cell's 16384x32768 (CELL_PHI); the MVM at
    the shapes its launch geometry makes edge cases (MVM_EDGES,
    F32_EDGES: one and two bands, 5 and 10 bands, rows of >= 16 chunks,
    partial last chunks) in every mode at every rows-per-warp geometry of
@@ -322,6 +323,9 @@ MVM_EDGES = ((128, 16512), (640, 1152))
 # grid share nor of csrc/transpose.cu's 4x4-tile strips (short strips on
 # both sides)
 SETUP_EDGES = ((128, 384), (384, 640), (8320, 16512))
+# the benchmark's solve cell's Phi (iht4-16384x32768), which it quantizes
+# with SR on every request: 2^29 elements on 32-bit Philox counters
+CELL_PHI = (16384, 32768)
 F32_EDGES = ((64, 576), (320, 16448))
 F32_BATCHES = (2, 8, 32)      # mvm_batched_f32 checks at NS x NS
 SHARD = (M // 2, N // 4)      # a 2x4 mesh's block of the M x N matrix
@@ -625,6 +629,26 @@ def check_setup_edges(rep: Report, gen, modes):
                            (kn.transpose8_cuda, kn.transpose8_plain))
             rep.exact(f"transpose{bits}", f"{m}x{n} edges (+-qmax, 0)",
                       (cuda(codes), st), (plain(codes), st), bits)
+
+
+def check_cell_quantize(rep: Report, gen, seed: int):
+    """quantize_mat at the solve cell's CELL_PHI, 4- and 8-bit, SR and
+    deterministic: bit-identical to its plain version (whose int64 Philox
+    words take ~40 GB here, so it runs last in phase 2, with the
+    allocator's cache emptied)."""
+    import torch
+    from clover_tpu_torch import kernels as kn
+    torch.cuda.empty_cache()
+    m, n = CELL_PHI
+    a = torch.rand(m, n, generator=gen, device=gen.device) * 2 - 1
+    for bits in (4, 8):
+        for mode, noise in (("SR", True), ("det", False)):
+            want = kn.quantize_mat_plain(a, bits, seed, noise)
+            torch.cuda.empty_cache()
+            rep.exact("quantize_mat", f"{m}x{n} {bits}-bit {mode}",
+                      kn.quantize_mat_cuda(a, bits, seed, noise), want, bits)
+            del want
+            torch.cuda.empty_cache()
 
 
 def check_transpose(rep: Report, qphi):
@@ -1538,6 +1562,7 @@ def phase_kernels(rep: Report, phi, mats, gen):
     check_hybrid(rep, gen)
     check_probes(rep, qphi, gen)
     check_tf32(phi, gen)
+    check_cell_quantize(rep, gen, seed_from(gen)[0])
 
 
 def recovery_error(x, x_star) -> float:

@@ -11,9 +11,11 @@
 // Matrix bound.  A matrix reads 4 bytes and writes half a byte (4-bit) or
 // one byte (8-bit) per element: 604 MB at 8192x16384 4-bit, 0.180 ms at
 // 3.35 TB/s, which deterministic rounding nearly reaches.  Stochastic
-// rounding adds one Philox4x32-10 evaluation per element, ~40 integer
-// instructions (17 wide multiplies, 17 three-input XORs after the folds
-// below), so there the kernel is bound by instruction issue, not memory.
+// rounding adds one Philox4x32-10 evaluation per element, so there the
+// kernel is bound by the SM's integer pipes, not memory: on an H100 a
+// kernel of Philox alone (one philox_word0_32 an element in this thread
+// map, no loads, no codes) takes 0.29 ms at 8192x16384, 73 cycles of an SM
+// sub-partition per 32 elements, and 0.32 ms with the rounding.
 // Matrix design (quantize_mat_kernel):
 //   - A persistent grid of 256-thread CTAs, as many as fit on the card,
 //     walks the matrix in row-major steps of TP tiles side by side.  A
@@ -24,23 +26,32 @@
 //     32-bit store (two for 8-bit codes).
 //   - The loads run ahead through a cp.async ring in shared memory, each
 //     thread copying and later reading back its own 16-byte slots (so no
-//     barrier guards the ring): deterministic rounding keeps 2 steps of 2
-//     tiles (64 KB) in flight a CTA; SR, bound by issue, 1 step of 1 tile,
-//     so that more CTAs share an SM.  The noise depends only on the
-//     element's index, so it is computed while the next steps' copies are
-//     in flight.
-//   - Operands of fewer than 2^32 elements take 32-bit counters
-//     (philox_word0_32: counter words 1-3 are 0, so rounds 0-2 fold around
-//     launch constants formed on the host); larger ones the 64-bit path
-//     (WIDE, philox_word0), which the wrapper picks.
-//   - The tile max: a warp max (a warp holds 4 rows of one tile), then the
-//     8 warps' maxima through shared memory, double buffered by step
-//     parity, so one barrier a step.
+//     barrier guards the ring), steps of 2 tiles: deterministic rounding
+//     keeps 2 steps in flight a CTA, SR 1.  The tile max: a warp max (a
+//     warp holds 4 rows of one tile), then the 8 warps' maxima through
+//     shared memory, double buffered by step parity, so one barrier a step.
+//     (A warp-specialized SR kernel -- a producer warp filling a ring of
+//     whole tiles, consumer warps or warp groups each owning a tile with no
+//     CTA barrier -- measured 0.40 ms here against this design's 0.38, in
+//     every arrangement tried: the consumers' own code, without loads or
+//     waits, took 0.34-0.36 ms.)
+//   - SR's noise.  Operands of fewer than 2^32 elements take 32-bit
+//     counters (philox_word0_32: counter words 1-3 are 0, so rounds 0-2
+//     fold around launch constants formed on the host), and the kernel
+//     walks round 0's product M0 * index itself: an element's product is
+//     one 64-bit add from the product of its row's first element, so 16
+//     products an element remain of Philox's 20.  Larger operands take the
+//     64-bit path (WIDE, philox_word0, the index walked), which the
+//     wrapper picks.
+//   - SR's rounding: the noise added by one fused add (the product w *
+//     2^-24 is exact), a clamp, and an add of +-(1.5 * 2^23 + bias) rounded
+//     down, whose low byte is the code's two's complement byte (biased by 8
+//     for a low nibble); bytes are packed with byte permutes (sr_bits,
+//     low_bytes).
 // Every value is rounded in the op order of sr_code (common.cuh; sr_code_rd
-// is the same function with one conversion fewer), so the bytes are those
-// of quantize_mat_plain in both modes.
-#include <type_traits>
-
+// is the same function with one conversion fewer; sr_bits the same values
+// in the bits of a float), so the bytes are those of quantize_mat_plain in
+// both modes.
 #include "common.cuh"
 
 namespace clover {
@@ -77,6 +88,8 @@ struct PhiloxKeys {
   uint32_t c2_xor, c2_xor_2;
 };
 
+constexpr uint32_t PHILOX_M0 = 0xD2511F53u, PHILOX_M1 = 0xCD9E8D57u;
+
 // The 64-bit product of two 32-bit words as one IMAD.WIDE.U32 (a product
 // written in C with a 64-bit constant leaves an add of the constant's zero
 // high word in the machine code).
@@ -86,28 +99,28 @@ __device__ __forceinline__ uint64_t mul_wide(uint32_t a, uint32_t b) {
   return r;
 }
 
-// philox_word0(seed, index, 0) for index < 2^32: the counter is (index, 0,
-// 0, 0), so round 0 multiplies one word and leaves (seed, 0, hi, lo), round
-// 1's first product is of the key alone, and round 2's c3 is its low half:
-// 17 products where philox_word0 forms 20, each one IMAD.WIDE, its halves
-// the __umulhi and the low product of philox_word0; each xor with a key
-// reads the launch's constants.
+// philox_word0(seed, index, 0) for index < 2^32, from round 0's product
+// p = M0 * index: the counter is (index, 0, 0, 0), so round 0 multiplies one
+// word and leaves (seed, 0, hi, lo), round 1's first product is of the key
+// alone, and round 2's c3 is its low half: 16 products here, and round 0's,
+// where philox_word0 forms 20, each one IMAD.WIDE, its halves the __umulhi
+// and the low product of philox_word0; each xor with a key reads the
+// launch's constants.
 __device__ __forceinline__ uint32_t philox_word0_32(const PhiloxKeys& key,
-                                                    uint32_t index) {
-  constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
-  const uint64_t p = mul_wide(M0, index);                 // round 0
-  const uint64_t p1 = mul_wide(M1, (uint32_t)(p >> 32));  // round 1
+                                                    uint64_t p) {
+  const uint64_t p1 = mul_wide(PHILOX_M1, (uint32_t)(p >> 32));  // round 1
   uint32_t c0 = (uint32_t)(p1 >> 32) ^ key.k0[1];
   uint32_t c1 = (uint32_t)p1;
   uint32_t c2 = (uint32_t)p ^ key.c2_xor;
-  const uint64_t q0 = mul_wide(M0, c0), q1 = mul_wide(M1, c2);  // round 2
+  const uint64_t q0 = mul_wide(PHILOX_M0, c0);  // round 2
+  const uint64_t q1 = mul_wide(PHILOX_M1, c2);
   c0 = (uint32_t)(q1 >> 32) ^ c1 ^ key.k0[2];
   c1 = (uint32_t)q1;
   c2 = (uint32_t)(q0 >> 32) ^ key.c2_xor_2;
   uint32_t c3 = (uint32_t)q0;
 #pragma unroll
   for (int r = 3; r < 10; ++r) {
-    const uint64_t s0 = mul_wide(M0, c0), s1 = mul_wide(M1, c2);
+    const uint64_t s0 = mul_wide(PHILOX_M0, c0), s1 = mul_wide(PHILOX_M1, c2);
     c0 = (uint32_t)(s1 >> 32) ^ c1 ^ key.k0[r];
     c1 = (uint32_t)s1;
     c2 = (uint32_t)(s0 >> 32) ^ c3 ^ (uint32_t)(r * 0xBB67AE85u);
@@ -127,6 +140,28 @@ __device__ __forceinline__ int sr_code_rd(float x, float mult, float qm,
   return x < 0.0f ? -q : q;
 }
 
+// sr_code's code for noise word w, in the low byte of the result's bits,
+// plus ``bias``: mag = |x| * mult + u as one fused add (u = (w & 0xFFFFFF) *
+// 2^-24, whose product is exact, so the add rounds as sr_code's), clamped to
+// qm; then magic = 1.5 * 2^23 + bias, signed as x, plus the clamped mag,
+// rounded down: M + floor(m) for x >= 0, -(M - floor(m)) for x < 0, whose
+// magnitudes lie in [2^23, 2^24), where a float's unit is 1, so the low
+// byte of the bits is bias + code mod 256.
+__device__ __forceinline__ uint32_t sr_bits(float x, float mult, float qm,
+                                            uint32_t w, float magic) {
+  const float mag = __fmaf_rn((float)(w & 0xFFFFFFu), 0x1p-24f,
+                              fabsf(x) * mult);
+  return __float_as_uint(__fadd_rd(copysignf(magic, x), fminf(mag, qm)));
+}
+constexpr float SR_MAGIC = 12582912.0f;  // 1.5 * 2^23
+
+// The low bytes of four words, in order, as one word.
+__device__ __forceinline__ uint32_t low_bytes(uint32_t a, uint32_t b,
+                                              uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                     0x5410);
+}
+
 // The keys of philox_word0_32 for ``seed``.
 inline PhiloxKeys philox_keys(uint32_t seed) {
   PhiloxKeys key;
@@ -139,38 +174,51 @@ inline PhiloxKeys philox_keys(uint32_t seed) {
 
 constexpr int QM_THREADS = 256;
 constexpr int QM_WARPS = QM_THREADS / 32;
-// A CTA's step is TP tiles side by side (a 64 x 64 TP strip, 16 TP KB of
-// f32), and its cp.async ring holds STAGES steps, all but one in flight.
-// Deterministic rounding is bound by memory: 2 tiles a step, 3 steps (96 KB)
-// a ring.  SR is bound by instruction issue: 1 tile a step, 2 steps a ring,
-// so that more CTAs fit on an SM.
-template <bool NOISE>
-__host__ __device__ constexpr int qm_tiles() {
-  return NOISE ? 1 : 2;
-}
+// A CTA's step is QM_TILES tiles side by side (a 64 x 128 strip, 32 KB of
+// f32), and its cp.async ring holds STAGES steps, all but one in flight:
+// deterministic rounding, bound by memory, 3 (96 KB); SR, bound by the
+// integer pipes, 2, so that more CTAs share an SM.
+constexpr int QM_TILES = 2;
 template <bool NOISE>
 __host__ __device__ constexpr int qm_stages() {
   return NOISE ? 2 : 3;
 }
 template <bool NOISE>
 __host__ __device__ constexpr int qm_smem() {  // bytes of the ring
-  return qm_stages<NOISE>() * qm_tiles<NOISE>() * 4 * QM_THREADS * 16;
+  return qm_stages<NOISE>() * QM_TILES * 4 * QM_THREADS * 16;
 }
 
-// Element offset of a tile's (row, column) in the padded operand: 32-bit
-// below 2^32 elements, else 64-bit.
+// An element's Philox counter as the kernel walks it: for 32-bit counters
+// round 0's product M0 * index, which an index below 2^32 keeps exact in 64
+// bits, so that the product of index + d is one 64-bit add (on the integer
+// pipe) of M0 * d away; for 64-bit counters the index.
 template <bool WIDE>
-using Index = typename std::conditional<WIDE, uint64_t, uint32_t>::type;
-
-template <bool WIDE>
-__device__ __forceinline__ float noise_at(const PhiloxKeys& key,
-                                          Index<WIDE> i) {
-  uint32_t w;
+__device__ __forceinline__ uint64_t counter_of(int64_t index) {
   if constexpr (WIDE)
-    w = philox_word0(key.k0[0], i, 0);
+    return (uint64_t)index;
   else
-    w = philox_word0_32(key, i);
-  return (float)(w & 0xFFFFFFu) * (1.0f / 16777216.0f);
+    return mul_wide(PHILOX_M0, (uint32_t)index);
+}
+
+// The noise word of the element OFF after counter c.
+template <bool WIDE, uint32_t OFF>
+__device__ __forceinline__ uint32_t noise_word(const PhiloxKeys& key,
+                                               uint64_t c) {
+  if constexpr (WIDE)
+    return philox_word0(key.k0[0], c + OFF, 0);
+  else
+    return philox_word0_32(key, c + (uint64_t)PHILOX_M0 * OFF);
+}
+
+// sr_bits of the four elements OFF .. OFF + 3 after counter c.
+template <bool WIDE, uint32_t OFF>
+__device__ __forceinline__ void sr_quad(const float4& v, float mult, float qm,
+                                        float magic, const PhiloxKeys& key,
+                                        uint64_t c, uint32_t (&out)[4]) {
+  out[0] = sr_bits(v.x, mult, qm, noise_word<WIDE, OFF>(key, c), magic);
+  out[1] = sr_bits(v.y, mult, qm, noise_word<WIDE, OFF + 1>(key, c), magic);
+  out[2] = sr_bits(v.z, mult, qm, noise_word<WIDE, OFF + 2>(key, c), magic);
+  out[3] = sr_bits(v.w, mult, qm, noise_word<WIDE, OFF + 3>(key, c), magic);
 }
 
 // A step of the row-major step order and its (tile row, step column),
@@ -218,12 +266,14 @@ __global__ void __launch_bounds__(QM_THREADS)
 quantize_mat_kernel(const float* __restrict__ a, int8_t* __restrict__ codes,
                     float* __restrict__ scales, int64_t steps, int64_t ns,
                     int64_t n_pad, const PhiloxKeys key) {
-  constexpr int TP = qm_tiles<NOISE>(), STAGES = qm_stages<NOISE>();
+  constexpr int TP = QM_TILES, STAGES = qm_stages<NOISE>();
   extern __shared__ float4 ring[];  // [STAGES][TP][4][QM_THREADS]
   __shared__ float warp_amax[2][TP][QM_WARPS];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int r = threadIdx.x >> 3, k = threadIdx.x & 7;
   constexpr float qm = BITS == 4 ? 7.0f : 127.0f;
+  // a low nibble is biased by 8 (formats.py)
+  constexpr float lo_magic = BITS == 4 ? SR_MAGIC + 8.0f : SR_MAGIC;
   const int64_t by = gridDim.x, by_rows = by / ns, by_cols = by % ns;
   StepAt at = {blockIdx.x, blockIdx.x / ns, blockIdx.x % ns};
   StepAt ahead = at;
@@ -272,39 +322,59 @@ quantize_mat_kernel(const float* __restrict__ a, int8_t* __restrict__ codes,
       const float mult = qm / s;
       const int64_t tj = at.sj * TP + t;
       const int64_t row = at.ti * 64 + r, col = tj * 64 + 4 * k;
-      const Index<WIDE> i0 = (Index<WIDE>)(row * n_pad + col);
+      if constexpr (NOISE) {
+        // the counters of the thread's first element in rows r and r + 32
+        const uint64_t c0 = counter_of<WIDE>(row * n_pad + col);
+        const uint64_t c_half = counter_of<WIDE>(32 * n_pad);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        int c[2][4];
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const float x[4] = {v[t][h][q].x, v[t][h][q].y, v[t][h][q].z,
-                              v[t][h][q].w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float u = 0.0f;
-            if constexpr (NOISE)
-              u = noise_at<WIDE>(
-                  key, i0 + (Index<WIDE>)(h * 32 * n_pad + q * 32 + j));
-            c[q][j] = sr_code_rd(x[j], mult, qm, u);
+        for (int h = 0; h < 2; ++h) {
+          const uint64_t c = h ? c0 + c_half : c0;
+          uint32_t lo[4], hi[4];
+          sr_quad<WIDE, 0>(v[t][h][0], mult, qm, lo_magic, key, c, lo);
+          sr_quad<WIDE, 32>(v[t][h][1], mult, qm, SR_MAGIC, key, c, hi);
+          if constexpr (BITS == 4) {
+            // byte j: element 4k + j's code + 8, element 32 + 4k + j's above
+            *reinterpret_cast<uint32_t*>(codes + (row + h * 32) * (n_pad / 2) +
+                                         tj * 32 + 4 * k) =
+                low_bytes(lo[0], lo[1], lo[2], lo[3]) |
+                ((low_bytes(hi[0], hi[1], hi[2], hi[3]) << 4) & 0xF0F0F0F0u);
+          } else {
+            int8_t* o = codes + (row + h * 32) * n_pad + col;
+            *reinterpret_cast<uint32_t*>(o) =
+                low_bytes(lo[0], lo[1], lo[2], lo[3]);
+            *reinterpret_cast<uint32_t*>(o + 32) =
+                low_bytes(hi[0], hi[1], hi[2], hi[3]);
           }
         }
-        if constexpr (BITS == 4) {
-          uint32_t w = 0;
+      } else {
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            w |= (uint32_t)(uint8_t)pack_byte(c[0][j], c[1][j]) << (8 * j);
-          *reinterpret_cast<uint32_t*>(codes + (row + h * 32) * (n_pad / 2) +
-                                       tj * 32 + 4 * k) = w;
-        } else {
-          int8_t* o = codes + (row + h * 32) * n_pad + col;
+        for (int h = 0; h < 2; ++h) {
+          int c[2][4];
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
+            const float x[4] = {v[t][h][q].x, v[t][h][q].y, v[t][h][q].z,
+                                v[t][h][q].w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              c[q][j] = sr_code_rd(x[j], mult, qm, 0.0f);
+          }
+          if constexpr (BITS == 4) {
             uint32_t w = 0;
 #pragma unroll
             for (int j = 0; j < 4; ++j)
-              w |= (uint32_t)(uint8_t)c[q][j] << (8 * j);
-            *reinterpret_cast<uint32_t*>(o + q * 32) = w;
+              w |= (uint32_t)(uint8_t)pack_byte(c[0][j], c[1][j]) << (8 * j);
+            *reinterpret_cast<uint32_t*>(codes + (row + h * 32) * (n_pad / 2) +
+                                         tj * 32 + 4 * k) = w;
+          } else {
+            int8_t* o = codes + (row + h * 32) * n_pad + col;
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              uint32_t w = 0;
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                w |= (uint32_t)(uint8_t)c[q][j] << (8 * j);
+              *reinterpret_cast<uint32_t*>(o + q * 32) = w;
+            }
           }
         }
       }
@@ -339,7 +409,7 @@ int launch_qmat(const float* a, int8_t* codes, float* scales, int64_t m_pad,
     fill[device] = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
   }
   // n_pad is a multiple of 128, so a tile row holds whole steps
-  const int64_t ns = n_pad / 64 / qm_tiles<NOISE>(), steps = m_pad / 64 * ns;
+  const int64_t ns = n_pad / 64 / QM_TILES, steps = m_pad / 64 * ns;
   const unsigned grid =
       (unsigned)(steps < fill[device] ? steps : fill[device]);
   kernel<<<grid, QM_THREADS, smem, stream>>>(a, codes, scales, steps, ns,

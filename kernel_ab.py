@@ -13,12 +13,13 @@ the 8192x16384 IHT for mvm4 (4x4) and mvm8 (4x8, 8x8), both legs of the
 4096x4096 block (a 2x4 shard of the 8192x16384 matrix, through a ring of
 copies past the 50 MB L2), the main path's set-up kernels at 8192x16384
 (csrc/quantize.cu quantize_mat, 4- and 8-bit, det and SR;
-csrc/transpose.cu, 4- and 8-bit), the exact thresholds (csrc/threshold.cu: 4-
-and 8-bit at the main path's n = 16384, K = 4096, single and stacked B =
-8, and the 4-bit radix select at n = 2^19, K = 64), the whole-iteration
-kernel of the small IHT at 4096x8192, 2048x4096 and 512x1024 and the
-chained one (4 iterations) at 4096x8192, 4x4 and 4x8, SR on, the dot
-(csrc/dot.cu: 4- and 8-bit at n = 2^24 and 16384 back to back, and at 2^24
+csrc/transpose.cu, 4- and 8-bit) and quantize_mat at the solve cell's
+16384x32768 (SR 4-bit, last and alone), the exact thresholds
+(csrc/threshold.cu: 4- and 8-bit at the main path's n = 16384, K = 4096,
+single and stacked B = 8, and the 4-bit radix select at n = 2^19, K =
+64), the whole-iteration kernel of the small IHT at 4096x8192, 2048x4096
+and 512x1024 and the chained one (4 iterations) at 4096x8192, 4x4 and
+4x8, SR on, the dot (csrc/dot.cu: 4- and 8-bit at n = 2^24 and 16384 back to back, and at 2^24
 rotating through 256 MB of copies, past the 50 MB L2), and the batched MVM
 (csrc/mvm_batched.cu: 4x4, 4x8 and 8x8 at 8192x16384 with B = 8, 4x4 at
 16384x16384 with B = 2, 8 and 32, SR on; the f32-output mode, 4x4 at
@@ -107,6 +108,7 @@ E2E_RATES = {
 SMALL_HEADER = re.compile(r"^  (4x\d) (\d+x\d+) K=")
 SMALL_RATE = re.compile(r"^    (chained|traced)\s+([\d.]+) iterations/s")
 SPIN_CYCLES = 1 << 23
+CELL_PHI = (16384, 32768)       # the solve cell's Phi, quantized per request
 
 
 def median_ms(fn, reps: int = 5, inner: int = 20) -> float:
@@ -333,6 +335,18 @@ def setup_legs(tt, kn, torch) -> dict:
     return out
 
 
+def cell_leg(tt, kn, torch) -> tuple:
+    """(one SR 4-bit quantize_mat launch at the solve cell's CELL_PHI, 2^29
+    elements on 32-bit Philox counters; its plain version), the operand
+    made on the card.  Timed last and alone: the plain version's int64
+    Philox words take ~40 GB there."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    phi = torch.rand(*CELL_PHI, generator=gen, device="cuda") * 2 - 1
+    args = (phi, 4, 1, True)
+    return (functools.partial(kn.quantize_mat_cuda, *args),
+            functools.partial(kn.quantize_mat_plain, *args))
+
+
 def same(got, want, torch) -> bool:
     """Kernel output equal to the plain one: (codes, scales), or f32 bits."""
     if isinstance(got, tuple):
@@ -385,6 +399,14 @@ def child(tree: str) -> None:
         if not same(call(), plain(), torch):
             raise AssertionError(f"{tree}: {name}: kernel != plain")
         out[name] = median_ms(call)
+    del checked
+    torch.cuda.empty_cache()
+    call, plain = cell_leg(tt, kn, torch)
+    if not same(call(), plain(), torch):
+        raise AssertionError(f"{tree}: the cell's quantize_mat: kernel != "
+                             f"plain")
+    torch.cuda.empty_cache()
+    out["quantize_mat 4-bit SR 16384x32768"] = median_ms(call, inner=5)
     out["mvm4 host-call"] = host_call_ms(tt, kn, torch)
     print(json.dumps({"tree": tree, "ms": out}), flush=True)
 

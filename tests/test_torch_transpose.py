@@ -14,7 +14,8 @@ import clover_tpu_torch as tt
 from clover_tpu.kernels.transpose import (transpose_pallas,
                                           transpose_pallas_eligible)
 from clover_tpu_torch.kernels import transpose4_plain, transpose8_plain
-from torch_helpers import assert_same, element_codes, to_jax, to_torch
+from torch_helpers import (assert_same, byte_perm, element_codes, to_jax,
+                           to_torch)
 
 SHAPES = [(128, 128), (200, 300), (256, 384), (512, 1024), (1024, 512)]
 
@@ -86,18 +87,10 @@ BYTE_PERMS = re.findall(
     r"(0x[0-9A-Fa-f]+)\);", TRANSPOSE_CU)
 
 
-def _byte_perm(x, y, selector: int):
-    """__byte_perm on uint32 arrays: result byte i is byte (selector >> 4i)
-    & 7 of the 8 bytes x0..x3, y0..y3."""
-    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + \
-        [(y >> (8 * i)) & 0xFF for i in range(4)]
-    return sum(src[(selector >> (4 * i)) & 7] << (8 * i) for i in range(4))
-
-
 def _transpose4x4(r):
     env = {f"r[{i}]": r[i] for i in range(4)}
     for target, x, y, sel in BYTE_PERMS:
-        env[target] = _byte_perm(env[x], env[y], int(sel, 16))
+        env[target] = byte_perm(env[x], env[y], int(sel, 16))
     return [env[f"c[{e}]"] for e in range(4)]
 
 

@@ -76,6 +76,14 @@ def assert_within_lsb(got, want, rtol=1e-5):
     np.testing.assert_allclose(sg, sw, rtol=rtol)
 
 
+def byte_perm(x, y, selector: int):
+    """__byte_perm on uint32 arrays: result byte i is byte (selector >> 4i)
+    & 7 of the 8 bytes x0..x3, y0..y3."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + \
+        [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(src[(selector >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_thread():
     """One intra-op thread for a module of many small solves (import it
