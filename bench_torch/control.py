@@ -4,10 +4,11 @@
 
 For each seed, in one process: the cell's set-up and a short window of the
 program, the largest gap of its sampled answers (the program's reading);
-then the control, the plain reference computed one precision below the
-configuration's in the program's place, on the same sampled requests (the
-control's reading).  One JSON line per seed.  The benchmark's own runs do
-not run this.
+then the control, the plain reference computed at the control's
+precisions (``harness.control_precisions``: the configuration's
+``control``, else one precision below its own) in the program's place,
+on the same sampled requests (the control's reading).  One JSON line per
+seed.  The benchmark's own runs do not run this.
 """
 
 import argparse
@@ -28,15 +29,15 @@ def main(argv) -> int:
     args = p.parse_args(argv)
     harness.cache_dirs()
     cell = harness.find_cell(args.workload)
-    bits = int(cell.config["bits"])
     for seed in args.seeds:
         t0 = time.perf_counter()
         run, load, samples, errors, _ = harness.measure(
             cell, seed, args.seconds, False, t0)
         load.close()
-        program = harness.gaps(load, samples, bits)
-        control = harness.gaps(load, samples, bits,
-                               harness.control_answers(load, samples, bits))
+        program = harness.gaps(load, samples, cell.config)
+        control = harness.gaps(
+            load, samples, cell.config,
+            harness.control_answers(load, samples, cell.config))
         print(json.dumps({"workload": cell.name, "seed": seed,
                           "answers": len(samples), "failed": len(errors),
                           "program": max(program), "control": min(control),

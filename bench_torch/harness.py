@@ -4,16 +4,19 @@ output check, the traced run and the last line.
 Every piece that belongs to one configuration, traffic mix or metric is a
 file of its own, found by the name ``BENCHMARK.json`` gives it:
 
-- ``configs/<config>.json``: the deployment's sizes and precisions; its
-  ``system`` key names ``systems/<system>.py``, the module that sets the
-  program up and answers one request;
+- ``configs/<config>.json``: the deployment's sizes and precisions
+  (``bits``, the matrix's; ``vector_bits``, the vectors', where it
+  differs; ``control``, the precisions of the check's control, where they
+  are not one below each); its ``system`` key names
+  ``systems/<system>.py``, the module that sets the program up and
+  answers one request;
 - ``traffic/<traffic>.json``: the load's parameters; its ``generator``
   key names ``generators/<generator>.py``, whose ``Generator`` warms the
   system up and drives one window, and the rest is read by that module
   and the system module;
 - ``e2e/<metric>.py`` and ``metrics/<metric>.py``: one reader each,
-  ``read(run) -> float | None``; a per-layer metric ``<stem>.<part>``
-  with no file of its own is read by ``metrics/<stem>.py``.
+  ``read(run) -> float | None``; a metric ``<stem>.<part>`` with no file
+  of its own is read by ``e2e/<stem>.py`` or ``metrics/<stem>.py``.
 
 A run: set-up (the program's state, the inputs from ``--seed``, the
 warm-up), then the device's peak memory reset and a window of
@@ -53,10 +56,10 @@ def load_json(kind: str, name: str) -> dict:
 
 
 def module_path(kind: str, name: str) -> Path:
-    """``<kind>/<name>.py``; for a per-layer metric with no file of its
-    own, ``metrics/<stem>.py``, the reader of every ``<stem>.*``."""
+    """``<kind>/<name>.py``; for a metric with no file of its own,
+    ``<kind>/<stem>.py``, the reader of every ``<stem>.*``."""
     path = BENCH / kind / f"{name}.py"
-    if kind == "metrics" and not path.is_file():
+    if not path.is_file():
         path = BENCH / kind / f"{name.split('.')[0]}.py"
     return path
 
@@ -123,11 +126,28 @@ class Sample:
 
 # -- the check ----------------------------------------------------------------
 
-def gaps(load, samples: list, bits: int, answers=None) -> list:
+def precisions(config: dict) -> tuple[int, int]:
+    """(matrix bits, vector bits): ``vector_bits``, the precision of the
+    vectors, is ``bits`` where the configuration does not state it."""
+    bits = int(config["bits"])
+    return bits, int(config.get("vector_bits", bits))
+
+
+def control_precisions(config: dict) -> tuple[int, int]:
+    """The control's (matrix bits, vector bits): the configuration's
+    ``control`` where it states one, else one precision below each."""
+    if "control" in config:
+        return (int(config["control"]["bits"]),
+                int(config["control"]["vector_bits"]))
+    return tuple(b - 1 for b in precisions(config))
+
+
+def gaps(load, samples: list, config: dict, answers=None) -> list:
     """For each sample, |e - e_ref| / e_ref, where e is the error of the
     answer (the program's, or ``answers`` in its place) against the exact
-    result and e_ref that of the plain reference at ``bits``."""
-    want = load.reference_answers(samples, bits, "reference")
+    result and e_ref that of the plain reference at the configuration's
+    precisions."""
+    want = load.reference_answers(samples, precisions(config), "reference")
     got = answers if answers is not None else [s.answer for s in samples]
     out = []
     for s, a, r in zip(samples, got, want):
@@ -136,10 +156,11 @@ def gaps(load, samples: list, bits: int, answers=None) -> list:
     return out
 
 
-def control_answers(load, samples: list, bits: int) -> list:
-    """The reference one precision below ``bits``, in the program's
+def control_answers(load, samples: list, config: dict) -> list:
+    """The reference at the control's precisions, in the program's
     place."""
-    return load.reference_answers(samples, bits - 1, "control")
+    return load.reference_answers(samples, control_precisions(config),
+                                  "control")
 
 
 # -- the run ------------------------------------------------------------------
@@ -157,6 +178,7 @@ class Run:
     counters: dict = None  # the program's launch counts over the traced
                            # window, for program_counter readers
     device_name: str = ""
+    memory_peak_bytes: int = 0   # the device's peak in the window
 
     def completed(self) -> list:
         """Records that completed inside the window."""
@@ -291,15 +313,15 @@ def measure(cell: Cell, seed: int, seconds: float, traced: bool, t_start: float,
     records, samples, errors, start, deadline, trace, counts = window(
         gen, seconds, traced, cuda)
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    run = Run(cell, seconds, setup_s, records, start, deadline, trace, counts)
+    run = Run(cell, seconds, setup_s, records, start, deadline, trace, counts,
+              memory_peak_bytes=peak)
     return run, load, samples, errors, peak
 
 
 def check(cell: Cell, load, samples: list, errors: list) -> dict:
     """{name: {"value", "limit"}} of the numbers compared."""
-    bits = int(cell.config["bits"])
     (name, limit), = cell.config["limits"].items()
-    values = gaps(load, samples, bits) if samples else [math.inf]
+    values = gaps(load, samples, cell.config) if samples else [math.inf]
     return {name: {"value": max(values), "limit": limit,
                    "answers": len(samples)},
             "failed_requests": {"value": len(errors), "limit": 0}}
@@ -357,6 +379,18 @@ def execute(cell: Cell, seed: int, seconds: float, traced: bool,
     return line, checks
 
 
+# JAX and the JAX package the port was made from: the run measures the
+# port alone.  Top-level names, compared whole (``clover_tpu_torch`` is
+# the port).
+NOT_LOADED = ("jax", "jaxlib", "flax", "clover_tpu")
+
+
+def loaded_not_allowed() -> list:
+    """The names of ``NOT_LOADED`` that this process has imported."""
+    return sorted({name.split(".")[0] for name in sys.modules}
+                  & set(NOT_LOADED))
+
+
 def main(argv, t_start: float) -> int:
     args = parse(argv)
     pin_cpus()
@@ -370,6 +404,11 @@ def main(argv, t_start: float) -> int:
         return 2
     line, checks = execute(cell, args.seed, args.seconds, bool(args.trace),
                            t_start)
+    found = loaded_not_allowed()
+    if found:
+        print(f"loaded in the run's process: {', '.join(found)}; no result",
+              file=sys.stderr)
+        return 3
     for k, v in checks.items():
         print(f"check {k} {v['value']!r} limit {v['limit']!r}"
               + (f" over {v['answers']} answers" if "answers" in v else ""),

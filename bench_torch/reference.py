@@ -6,15 +6,18 @@ restored f32 values, code * s / qmax, with s the absmax of its 64-element
 block (vectors) or 64x64 tile (matrices), an all-zero block taking s = 1:
 
     quantize   code = sign(v) * min(floor(|v| * (qmax / s) + u), qmax)
-               u ~ U[0, 1) for stochastic rounding, 0 for truncation
+               u ~ U[0, 1) for stochastic rounding, 0 for truncation;
+               restored, code * (s / qmax); each quotient an IEEE
+               division, formed before the product
     mvm        y = requant(A @ x) per 64-row band, truncating
     mvm_axpy   r = requant(u + alpha * mvm(A, x)), truncating
     threshold  keep the K largest |v|, ties to the lower index
     iht        t2 = mvm_axpy(Phi, x, y, -1); x = mvm_axpy(PhiT, t2, x, mu);
                x = threshold(x, K); x starts at 0
 
-``bits`` sets qmax = 2^(bits-1) - 1: 7 for the configurations' 4 bits, 3
-for the control one precision below.  Products run in IEEE fp32 (TF32
+``bits`` sets qmax = 2^(bits-1) - 1: 7 at 4 bits, 127 at 8, 3 at 3.  In
+``iht`` the matrix holds its own precision, quantized before the call,
+and y, t2 and x hold ``vector_bits``.  Products run in IEEE fp32 (TF32
 off).  Lengths are multiples of 64; the harness's shapes are.
 """
 
@@ -46,9 +49,22 @@ def ieee_fp32():
          torch.backends.cudnn.allow_tf32) = saved
 
 
+def _div(num, den) -> torch.Tensor:
+    """IEEE ``num / den`` elementwise, a float operand filled to the
+    tensor's shape: torch forms ``float / tensor`` as a reciprocal times
+    the float, and on CUDA ``tensor / float`` as a product with the
+    reciprocal, either of which can miss the quotient by one ulp and move
+    an absmax element's code down by one."""
+    if not isinstance(num, torch.Tensor):
+        num = torch.full_like(den, num)
+    if not isinstance(den, torch.Tensor):
+        den = torch.full_like(num, den)
+    return torch.div(num, den)
+
+
 def _codes(v: torch.Tensor, s: torch.Tensor, bits: int, generator):
     """Signed codes of ``v`` against the broadcastable scales ``s``."""
-    mag = v.abs() * (qmax(bits) / s)
+    mag = v.abs() * _div(qmax(bits), s)
     if generator is not None:
         mag += torch.rand(v.shape, generator=generator, device=v.device)
     mag = mag.floor_().clamp_max_(qmax(bits))
@@ -64,7 +80,8 @@ def quant_vec(v: torch.Tensor, bits: int, generator=None) -> torch.Tensor:
     dim."""
     b = v.reshape(*v.shape[:-1], -1, BLOCK)
     s = _scales(b.abs().amax(dim=-1, keepdim=True))
-    return (_codes(b, s, bits, generator) * (s / qmax(bits))).reshape(v.shape)
+    return (_codes(b, s, bits, generator)
+            * _div(s, qmax(bits))).reshape(v.shape)
 
 
 def quant_mat(a: torch.Tensor, bits: int, generator=None) -> torch.Tensor:
@@ -72,7 +89,8 @@ def quant_mat(a: torch.Tensor, bits: int, generator=None) -> torch.Tensor:
     m, n = a.shape
     t = a.reshape(m // BLOCK, BLOCK, n // BLOCK, BLOCK)
     s = _scales(t.abs().amax(dim=(1, 3), keepdim=True))
-    return (_codes(t, s, bits, generator) * (s / qmax(bits))).reshape(m, n)
+    return (_codes(t, s, bits, generator)
+            * _div(s, qmax(bits))).reshape(m, n)
 
 
 def mvm(a: torch.Tensor, x: torch.Tensor, bits: int) -> torch.Tensor:
@@ -95,13 +113,13 @@ def threshold(x: torch.Tensor, k: int) -> torch.Tensor:
     return out
 
 
-def iht(phi_q, y_q, iterations: int, k: int, mu: float, bits: int):
+def iht(phi_q, y_q, iterations: int, k: int, mu: float, vector_bits: int):
     """The deterministic IHT iterations on quantized operands (restored
-    values); -> x, restored."""
+    values), t2 and x requantized at ``vector_bits``; -> x, restored."""
     x = torch.zeros(phi_q.shape[1], device=phi_q.device)
     for _ in range(iterations):
-        t2 = mvm_axpy(phi_q, x, y_q, -1.0, bits)
-        x = threshold(mvm_axpy(phi_q.T, t2, x, mu, bits), k)
+        t2 = mvm_axpy(phi_q, x, y_q, -1.0, vector_bits)
+        x = threshold(mvm_axpy(phi_q.T, t2, x, mu, vector_bits), k)
     return x
 
 
@@ -115,7 +133,7 @@ def restore4(codes: torch.Tensor, scales: torch.Tensor, length: int):
     high = torch.where(p < 0, p + 256, p) >> 4
     high = torch.where(high > 7, high - 16, high)
     c = torch.cat([low, high], dim=1).to(torch.float32)
-    return (c * (scales.reshape(-1, 1) / qmax(4))).reshape(-1)[:length]
+    return (c * _div(scales.reshape(-1, 1), qmax(4))).reshape(-1)[:length]
 
 
 def rel_error(x: torch.Tensor, want: torch.Tensor) -> float:

@@ -45,18 +45,23 @@ def f32_mat_bytes(m: int, n: int) -> int:
     return padded(m) * padded(n) * 4
 
 
-def solve_setup_bytes(m: int, n: int, bits: int) -> int:
+def solve_setup_bytes(m: int, n: int, bits: int,
+                      vector_bits: int | None = None) -> int:
     """A solve's set-up: the f32 Phi and y read once, the quantized Phi,
-    PhiT and y written once."""
+    PhiT (at ``bits``) and y (at ``vector_bits``, default ``bits``)
+    written once."""
+    vector_bits = bits if vector_bits is None else vector_bits
     return (f32_mat_bytes(m, n) + 2 * mat_bytes(m, n, bits)
-            + padded(m) * 4 + vec_bytes(m, bits))
+            + padded(m) * 4 + vec_bytes(m, vector_bits))
 
 
-def iteration_bytes(m: int, n: int, bits: int) -> int:
-    """One IHT iteration: Phi and PhiT read once, y and x read, x
-    written."""
-    return (2 * mat_bytes(m, n, bits) + vec_bytes(m, bits)
-            + 2 * vec_bytes(n, bits))
+def iteration_bytes(m: int, n: int, bits: int,
+                    vector_bits: int | None = None) -> int:
+    """One IHT iteration: Phi and PhiT (at ``bits``) read once, y and x
+    (at ``vector_bits``, default ``bits``) read, x written."""
+    vector_bits = bits if vector_bits is None else vector_bits
+    return (2 * mat_bytes(m, n, bits) + vec_bytes(m, vector_bits)
+            + 2 * vec_bytes(n, vector_bits))
 
 
 def mvm_batch_bytes(m: int, n: int, bits: int, vectors: int) -> int:

@@ -1,5 +1,8 @@
 """The IHT configurations: compressive-sensing recovery with the program's
-quantized IHT solve, as a user writes it.
+quantized IHT solve, as a user writes it: Phi at the configuration's
+``bits``, y at its ``vector_bits`` (``bits`` where it states none); the
+program's x starts at y's precision, so a 4-bit Phi with 8-bit vectors
+runs the program's mixed 4x8 path.
 
 The inputs follow the upstream problem recipe (Clover
 test/performance/03_iht_gd_util.cpp:449-495): Phi ~ U(-1, 1), each x* a
@@ -26,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from bench_torch import reference
-from bench_torch.harness import derive
+from bench_torch.harness import derive, precisions
 
 
 def _generator(seed: int, what: str, device) -> torch.Generator:
@@ -58,7 +61,8 @@ class Load:
         self.tt, self.span, self.seed = tt, span, seed
         self.m, self.n = config["m"], config["n"]
         self.k, self.mu = config["K"], config["mu"]
-        self.iterations, self.bits = config["iterations"], config["bits"]
+        self.iterations = config["iterations"]
+        self.bits, self.vector_bits = precisions(config)
         self.per_request = traffic["phi"] == "per_request"
         self.device = torch.device(device)
         phi = make_phi(self.m, self.n, seed, self.device)
@@ -79,13 +83,13 @@ class Load:
         if self.per_request:
             with span("bench.solve.setup"):
                 qphi = tt.quantize_mat(self.phi, self.bits, generator=keys[0])
-                qy = tt.quantize_vec(self.y[index], self.bits,
+                qy = tt.quantize_vec(self.y[index], self.vector_bits,
                                      generator=keys[1])
                 qphit = tt.transpose(qphi)
         else:
             qphi, qphit = self.qphi, self.qphit
             with span("bench.solve.quantize_y"):
-                qy = tt.quantize_vec(self.y[index], self.bits,
+                qy = tt.quantize_vec(self.y[index], self.vector_bits,
                                      generator=keys[1])
         with span("bench.solve.iterate"):
             res = tt.iht(qphi, qphit, qy, self.iterations, self.k, self.mu)
@@ -115,14 +119,18 @@ class Load:
             self._ref_phi[key] = reference.quant_mat(phi, bits, gen)
         return self._ref_phi[key]
 
-    def reference_answers(self, samples: list, bits: int, label: str) -> list:
+    def reference_answers(self, samples: list, precision: tuple,
+                          label: str) -> list:
+        """The reference's solves of the samples' y, Phi at
+        ``precision[0]`` bits, y, t2 and x at ``precision[1]``."""
+        bits, vector_bits = precision
         out = []
         for j, s in enumerate(samples):
             phi_q = self._reference_phi(bits, label, j)
             gen = _generator(self.seed, f"{label}/y/{j}", self.device)
-            y_q = reference.quant_vec(self.y[s.index], bits, gen)
+            y_q = reference.quant_vec(self.y[s.index], vector_bits, gen)
             out.append(reference.iht(phi_q, y_q, self.iterations, self.k,
-                                     self.mu, bits).cpu())
+                                     self.mu, vector_bits).cpu())
         self._ref_phi.clear()
         return out
 

@@ -76,7 +76,12 @@ class Load:
 
     # -- the reference ---------------------------------------------------------
 
-    def reference_answers(self, samples: list, bits: int, label: str) -> list:
+    def reference_answers(self, samples: list, precision: tuple,
+                          label: str) -> list:
+        """The reference's products of the samples' vectors, A at
+        ``precision[0]`` bits, the vectors and products at
+        ``precision[1]``."""
+        bits, vector_bits = precision
         a = make_matrix(self.m, self.n, self.seed, self.device)
         a_q = reference.quant_mat(
             a, bits, _generator(self.seed, f"{label}/a", self.device))
@@ -84,8 +89,9 @@ class Load:
         v = make_vectors(self.pool, self.n, self.seed, self.device)
         idx = torch.tensor([s.index for s in samples], device=self.device)
         x_q = reference.quant_vec(
-            v[idx], bits, _generator(self.seed, f"{label}/v", self.device))
-        y = reference.mvm(a_q, x_q.T, bits).T.cpu()
+            v[idx], vector_bits,
+            _generator(self.seed, f"{label}/v", self.device))
+        y = reference.mvm(a_q, x_q.T, vector_bits).T.cpu()
         return list(y)
 
     def _exact(self) -> torch.Tensor:

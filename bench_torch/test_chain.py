@@ -85,9 +85,9 @@ def test_control_fails():
     load = module.Load.__new__(module.Load)
     load.__dict__.update(_reference_only(module, cell, seed=7))
     samples = [harness.Sample(j, None) for j in range(4)]
-    bits = cell.config["bits"]
-    control = harness.gaps(load, samples, bits,
-                           harness.control_answers(load, samples, bits))
+    control = harness.gaps(
+        load, samples, cell.config,
+        harness.control_answers(load, samples, cell.config))
     (limit,) = cell.config["limits"].values()
     assert min(control) > limit, control
 
